@@ -1,0 +1,377 @@
+"""Landmark lifecycle: masked add / delete / store.
+
+The reference resizes state and covariance on every event (SLAM.cpp:818-1334
+add + permutation; 2397-2706 delete + Cholesky fold). Here every event is a
+masked write into fixed slots plus one structured refactorization:
+
+  * DELETE k slots: T = S with the deleted slots' *columns* zeroed keeps
+    T^T T = the marginal P; stacking unit rows for the deleted slots
+    restores the inactive-slot invariant (one Gram + Cholesky under
+    qr_mode="gram").
+  * ADD k features: augmented UT over [x; (u, v, rho) * K_ADD] exactly as
+    the reference's mapping function (SLAM.cpp:1177-1250), with outputs
+    scattered straight into their slots.
+
+The redirection branch (snapshot -> robot-only reset -> loop re-add) and the
+implicit large-state integration are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SlamConfig
+from ..geometry import camera as cam_mod
+from ..geometry import transforms as tf
+from ..ops import qr_r
+from ..ops.linalg import gram
+from .motion import equilibrated_chol, structured_sqrt_gram
+from .sigma import deviations, generate_sigma, ut_weights
+from .state import (FilterState, StoredTable, count_repairs,
+                    inactive_feature_defaults, replace)
+
+
+# ---------------------------------------------------------------------------
+# deletion (SLAM.cpp:2397-2706)
+# ---------------------------------------------------------------------------
+
+
+def delete_rules(state: FilterState, cfg: SlamConfig):
+    """Per-slot delete + store masks (SLAM.cpp:2443-2459, 2494-2532)."""
+    lm = state.lm
+    M = cfg.max_landmarks
+    feats = state.x[: 6 * M].reshape(M, 6)
+    rho = feats[:, 5]
+    hlr_z = rho * (feats[:, 2] - state.x[-2]) + torch.cos(feats[:, 4]) \
+        * torch.cos(feats[:, 3])
+    b = cfg.dist_to_border
+    Wd, Hd = cfg.camera.width, cfg.camera.height
+    px, py = lm.pred[:, 0], lm.pred[:, 1]
+    mx, my = lm.match_px[:, 0], lm.match_px[:, 1]
+
+    starved = ((lm.n_predict > cfg.delete_predict_ratio * lm.n_match)
+               & (lm.n_predict >= cfg.delete_predict_min))
+    bad_depth = (rho < cfg.delete_rho_min) | (hlr_z < 0.0)
+    pred_border = (px < b) | (py < b) | (Wd - px < b) | (Hd - py < b)
+    match_border = lm.matched & ((mx < b) | (my < b) | (Wd - mx < b)
+                                 | (Hd - my < b))
+    delete = lm.active & (starved | bad_depth | pred_border | match_border)
+    # store matched landmarks deleted purely for border reasons
+    store = delete & lm.matched & (pred_border | match_border) \
+        & ~(starved | bad_depth)
+    return delete, store
+
+
+def _feature_defaults(M: int, dtype, device) -> torch.Tensor:
+    return torch.cat([inactive_feature_defaults(dtype, device).repeat(M),
+                      torch.zeros(4, dtype=dtype, device=device)])
+
+
+def fold_delete(x: torch.Tensor, S: torch.Tensor, delete: torch.Tensor,
+                cfg: SlamConfig):
+    """Marginalize deleted slots; restore the unit-diagonal invariant.
+    Returns (x, S, repair_level)."""
+    M = cfg.max_landmarks
+    dtype, dev = x.dtype, x.device
+    row_mask = torch.cat([torch.repeat_interleave(delete, 6),
+                          torch.zeros(4, dtype=torch.bool, device=dev)])
+    rep = 0
+    if cfg.qr_mode == "gram":
+        # structured Gram: T = S diag(1-m), so [T; E]^T [T; E] is S^T S with
+        # the masked rows+columns zeroed plus the unit diagonal
+        G = gram(S)
+        keep = ~row_mask
+        G = torch.where(keep[:, None] & keep[None, :], G,
+                        torch.zeros_like(G))
+        G = G + torch.diag(row_mask.to(dtype))
+        S_new, rep = equilibrated_chol(G)
+    else:
+        T = torch.where(row_mask[None, :], torch.zeros_like(S), S)
+        E = torch.diag(row_mask.to(dtype))
+        S_new = qr_r(torch.cat([T, E], dim=0), cfg.qr_mode)
+    x_new = torch.where(row_mask, _feature_defaults(M, dtype, dev), x)
+    return x_new, S_new, rep
+
+
+def snapshot_records(state: FilterState, cfg: SlamConfig):
+    """Per-slot StoredTable-shaped records of the current landmarks
+    (reference FeatureInfo snapshot, SLAM.cpp:1359-1378, 2514-2530).
+
+    Like the reference, the saved 6x6 sqrt block is the diagonal block of S
+    (SLAM.cpp:2530 / 1373), i.e. the conditional — not marginal — sqrt.
+    """
+    M = cfg.max_landmarks
+    lm = state.lm
+    feats = state.x[: 6 * M].reshape(M, 6)
+    rows = (6 * torch.arange(M, device=feats.device)[:, None]
+            + torch.arange(6, device=feats.device)[None, :])      # (M, 6)
+    sr = state.S[rows[:, :, None], rows[:, None, :]]              # (M, 6, 6)
+    return dict(
+        lid=lm.lid, is_loop=lm.is_loop, n_predict=lm.n_predict,
+        n_match=lm.n_match, state=feats, sr=sr,
+        init_pixel=lm.init_pixel, init_trans=lm.init_trans,
+        init_theta=lm.init_theta, init_patch=lm.init_patch, xyz=lm.xyz,
+    )
+
+
+_RECORD_FIELDS = ("lid", "is_loop", "n_predict", "n_match", "state", "sr",
+                  "init_pixel", "init_trans", "init_theta", "init_patch",
+                  "xyz")
+
+
+def store_features(stored: StoredTable, recs: dict,
+                   mask: torch.Tensor) -> StoredTable:
+    """Scatter mask-selected records into stored slots.
+
+    Slot policy per record: (1) a valid slot already holding the same
+    landmark id is overwritten; (2) else the first free slot; (3) else the
+    OLDEST slot by insertion stamp is evicted. Records are taken in slot
+    order on the host (one sync to read the mask, one per stored record to
+    pick its slot): stores happen only on border deletions.
+    """
+    fields = {k: getattr(stored, k).clone() for k in
+              ("valid", "stamp", *_RECORD_FIELDS)}
+    seq = int(stored.seq)
+    for j in torch.nonzero(mask).flatten().tolist():
+        valid = fields["valid"]
+        lid_j = recs["lid"][j]
+        dup = valid & (fields["lid"] == lid_j)
+        big = torch.iinfo(torch.int32).max
+        if bool(torch.any(dup)):
+            slot = int(torch.argmax(dup.to(torch.int32)))
+        elif bool(torch.any(~valid)):
+            slot = int(torch.argmin(valid.to(torch.int32)))
+        else:
+            slot = int(torch.argmin(torch.where(
+                valid, fields["stamp"], torch.full_like(fields["stamp"],
+                                                        big))))
+        fields["valid"][slot] = True
+        fields["stamp"][slot] = seq
+        seq += 1
+        for k in _RECORD_FIELDS:
+            fields[k][slot] = recs[k][j].to(fields[k].dtype)
+    return replace(stored, seq=torch.full_like(stored.seq, seq), **fields)
+
+
+def update_features(state: FilterState, cfg: SlamConfig) -> FilterState:
+    """Deletion pass + Cartesian refresh (SLAM.cpp:2397-2706).
+
+    Most frames delete and store nothing; one host read of both flags
+    decides whether the store scan and the refactorization run."""
+    M = cfg.max_landmarks
+    delete, store = delete_rules(state, cfg)
+    any_store, any_delete = torch.stack(
+        [torch.any(store), torch.any(delete)]).tolist()
+    stored = state.stored
+    if any_store:
+        stored = store_features(stored, snapshot_records(state, cfg), store)
+    x_new, S_new, rep = state.x, state.S, 0
+    if any_delete:
+        x_new, S_new, rep = fold_delete(state.x, state.S, delete, cfg)
+    lm = state.lm
+    keep = lm.active & ~delete
+    feats = x_new[: 6 * M].reshape(M, 6)
+    xyz = tf.inverse_depth_to_cartesian(feats)
+    zero_i = torch.zeros_like(lm.n_predict)
+    # ``visible`` is NOT cleared here: the next measurement predict
+    # recomputes it before any consumer reads it, and keeping it makes the
+    # per-frame n_visible telemetry meaningful
+    lm_new = replace(
+        lm,
+        active=keep,
+        lid=torch.where(keep, lm.lid, torch.zeros_like(lm.lid)),
+        is_loop=lm.is_loop & keep,
+        n_predict=torch.where(keep, lm.n_predict, zero_i),
+        n_match=torch.where(keep, lm.n_match, zero_i),
+        visible=lm.visible & keep,
+        matched=lm.matched & keep,
+        xyz=torch.where(keep[:, None], xyz, lm.xyz),
+    )
+    return count_repairs(
+        replace(state, x=x_new, S=S_new, lm=lm_new, stored=stored), rep)
+
+
+# ---------------------------------------------------------------------------
+# addition (SLAM.cpp:818-1334)
+# ---------------------------------------------------------------------------
+
+
+def integrate_features(state: FilterState, image: torch.Tensor,
+                       corners: torch.Tensor, valid: torch.Tensor,
+                       cfg: SlamConfig) -> FilterState:
+    """Initialize up to K_ADD new inverse-depth landmarks via augmented UT.
+
+    corners: (K_ADD, 2) pixel positions; valid: (K_ADD,) mask. Invalid
+    entries are exact no-ops (their slots keep the inactive invariant).
+    """
+    if cfg.sigma_mode == "implicit":
+        raise NotImplementedError(
+            "implicit feature integration (integrate_fold) is not ported "
+            "yet (ROADMAP.md, Queue 1: the implicit large-state path)")
+    dtype, dev = state.x.dtype, state.x.device
+    D = cfg.state_dim
+    KA = cfg.max_new_per_frame
+    na = D + 3 * KA
+    w = ut_weights(na, cfg)
+    cam = cfg.camera
+
+    # target slots: first KA inactive (stable argsort: inactive first)
+    targets = torch.argsort(state.lm.active.to(torch.int32),
+                            stable=True)[:KA]                     # (KA,)
+    valid = valid & ~state.lm.active[targets]
+
+    # augmented mean + sqrt (SLAM.cpp:847-869)
+    centre = torch.tensor([cam.width / 2.0, cam.height / 2.0], dtype=dtype,
+                          device=dev)
+    safe_c = torch.where(valid[:, None], corners.to(dtype), centre)
+    mu2 = torch.cat([safe_c, torch.full((KA, 1), cfg.rho0, dtype=dtype,
+                                        device=dev)], dim=1).reshape(-1)
+    noise = torch.where(
+        valid[:, None],
+        torch.tensor([cfg.sigma_measure, cfg.sigma_measure, cfg.sigma_rho],
+                     dtype=dtype, device=dev)[None, :],
+        torch.ones((KA, 3), dtype=dtype, device=dev)).reshape(-1)
+    mu = torch.cat([state.x, mu2])
+    sr = torch.zeros((na, na), dtype=dtype, device=dev)
+    sr[:D, :D] = state.S
+    k = torch.arange(D, na, device=dev)
+    sr[k, k] = noise
+    sig = generate_sigma(mu, sr, w.gamma)                     # (na, 2na+1)
+    ns = sig.shape[1]
+
+    # mapping function (SLAM.cpp:1177-1250): pixel -> world angles
+    pos = sig[D - 4: D - 1]                                   # (3, ns)
+    theta_r = sig[D - 1]                                      # (ns,)
+    rwc = tf.yaw_matrix(theta_r)                              # (ns, 3, 3)
+    uvr = sig[D:].reshape(KA, 3, ns)                          # (KA, 3, ns)
+    uv = uvr[:, :2].permute(0, 2, 1)                          # (KA, ns, 2)
+    rho_in = uvr[:, 2]                                        # (KA, ns)
+    ray = cam_mod.image2camera(cam, cam_mod.undistort(cam, uv))
+    hlw = torch.einsum("sij,ksj->ksi", rwc, ray)              # (KA, ns, 3)
+    ang = tf.world_to_angles(hlw)                             # (KA, ns, 2)
+    if cfg.rho_init_mode == "ceiling":
+        # rho = m_z / depth: exact for a flat ceiling
+        rho_out = rho_in * torch.cos(ang[..., 1]) * torch.cos(ang[..., 0])
+    else:
+        rho_out = rho_in
+
+    # scatter outputs into target slot rows
+    sig_out = sig[:D].clone()
+    ar3 = torch.arange(3, device=dev)
+    pos_rows = (6 * targets[:, None] + ar3[None, :]).reshape(-1)
+    ang_rows = (6 * targets[:, None] + 3 + ar3[None, :]).reshape(-1)
+    pos_vals = pos[None].expand(KA, 3, ns).reshape(-1, ns)
+    ang_vals = torch.stack(
+        [ang[..., 0], ang[..., 1], rho_out], dim=1).reshape(-1, ns)
+    vmask6 = torch.repeat_interleave(valid, 3)
+    sig_out[pos_rows] = torch.where(vmask6[:, None], pos_vals,
+                                    sig_out[pos_rows])
+    sig_out[ang_rows] = torch.where(vmask6[:, None], ang_vals,
+                                    sig_out[ang_rows])
+
+    x_new = sig_out @ w.mean_weights(dtype, dev)
+    if cfg.qr_mode == "gram":
+        # structured Gram: only the 6*KA target-slot rows differ from the
+        # +-gamma*S sigma structure
+        ridx = torch.cat([pos_rows, ang_rows])
+        S_new, rep = structured_sqrt_gram(state.S, sig_out, ridx, w, na,
+                                          with_flag=True)
+    else:
+        S_new = qr_r(deviations(sig_out, w.wi_sr), cfg.qr_mode)
+        rep = 0
+
+    return _integrate_records(state, image, corners, valid, targets,
+                              x_new, S_new, rep, cfg)
+
+
+def _integrate_records(state: FilterState, image: torch.Tensor,
+                       corners: torch.Tensor, valid: torch.Tensor,
+                       targets: torch.Tensor, x_new: torch.Tensor,
+                       S_new: torch.Tensor, rep, cfg: SlamConfig):
+    """Shared tail of feature integration: landmark records + counters
+    (SLAM.cpp:891-946)."""
+    dtype = state.x.dtype
+    M = cfg.max_landmarks
+    KA = cfg.max_new_per_frame
+    lm = state.lm
+    n_valid = torch.sum(valid.to(torch.int32))
+    lids = (state.next_id
+            + torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1)
+    feats_new = x_new[: 6 * M].reshape(M, 6)[targets]
+    xyz = tf.inverse_depth_to_cartesian(feats_new)            # (KA, 3)
+    patches = extract_patches(image, corners, cfg.hp_init)    # (KA, P, P)
+    robot_pos = x_new[-4:-1]
+    theta_now = x_new[-1]
+
+    def scatter(field, vals):
+        out = field.clone()
+        sel = valid.reshape((-1,) + (1,) * (vals.dim() - 1))
+        out[targets] = torch.where(sel, vals.to(field.dtype), field[targets])
+        return out
+
+    def zeros_like_rows(field):
+        return torch.zeros((KA,) + tuple(field.shape[1:]), dtype=field.dtype,
+                           device=field.device)
+
+    active = lm.active.clone()
+    active[targets] = valid | lm.active[targets]
+    lm_new = replace(
+        lm,
+        active=active,
+        lid=scatter(lm.lid, lids),
+        is_loop=scatter(lm.is_loop, zeros_like_rows(lm.is_loop)),
+        n_predict=scatter(lm.n_predict, zeros_like_rows(lm.n_predict)),
+        n_match=scatter(lm.n_match, zeros_like_rows(lm.n_match)),
+        visible=scatter(lm.visible, zeros_like_rows(lm.visible)),
+        matched=scatter(lm.matched, zeros_like_rows(lm.matched)),
+        pred=scatter(lm.pred, zeros_like_rows(lm.pred)),
+        match_px=scatter(lm.match_px, zeros_like_rows(lm.match_px)),
+        init_pixel=scatter(lm.init_pixel, corners.to(dtype)),
+        init_trans=scatter(lm.init_trans, robot_pos.expand(KA, 3)),
+        init_theta=scatter(lm.init_theta, theta_now.expand(KA)),
+        init_patch=scatter(lm.init_patch, patches),
+        match_patch=scatter(lm.match_patch, zeros_like_rows(lm.match_patch)),
+        xyz=scatter(lm.xyz, xyz),
+    )
+    return count_repairs(
+        replace(state, x=x_new, S=S_new, lm=lm_new,
+                next_id=(state.next_id + n_valid).to(state.next_id.dtype)),
+        rep)
+
+
+def extract_patches(image: torch.Tensor, corners: torch.Tensor,
+                    hp: int) -> torch.Tensor:
+    """(K, 2) corner pixels -> (K, 2hp+1, 2hp+1) patches (float32).
+    Rounds half to even, like jnp.round."""
+    P = 2 * hp + 1
+    H, W = image.shape
+    cu = torch.clamp(torch.round(corners[:, 0]).to(torch.int64) - hp,
+                     0, W - P)
+    cv = torch.clamp(torch.round(corners[:, 1]).to(torch.int64) - hp,
+                     0, H - P)
+    ar = torch.arange(P, device=image.device)
+    rows = (cv[:, None] + ar)[:, :, None]
+    cols = (cu[:, None] + ar)[:, None, :]
+    return image[rows, cols].to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# redirection (SLAM.cpp:948-1015, 1343-1428): not ported yet
+# ---------------------------------------------------------------------------
+
+_REDIRECT = ("the redirection branch is not ported yet (ROADMAP.md, "
+             "Queue 1: the redirect branch)")
+
+
+def readd_stored(state: FilterState, readd_mask: torch.Tensor,
+                 cfg: SlamConfig) -> FilterState:
+    raise NotImplementedError(_REDIRECT)
+
+
+def project_stored(state: FilterState, cfg: SlamConfig) -> torch.Tensor:
+    raise NotImplementedError(_REDIRECT)
+
+
+def redirect_reset(state: FilterState, theta_odo: torch.Tensor,
+                   cfg: SlamConfig) -> FilterState:
+    raise NotImplementedError(_REDIRECT)

@@ -1,0 +1,116 @@
+"""Per-frame SRUKF pipeline orchestration (CSLAM::SLAM, SLAM.cpp:87-112).
+
+``slam_step(state, frame) -> (state, outputs)`` runs the reference's fixed
+stage order:
+
+    predictMotion -> predictMeasurement -> dataAssociation -> KalmanUpdate
+    -> updateFeaturesInformation -> [addFeatures if matches < min_num]
+
+Redirection frames (|dtheta| > 45 deg odometry steps, SLAM.cpp:1354-1428)
+take a separate branch that is not ported yet: such a frame raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SlamConfig
+from ..frontend.detect import (candidate_filters, escalate_raws,
+                               gftt_candidates, select_new_corners)
+from ..frontend.matching import data_association
+from ..utils.watchdog import health_check
+from .lifecycle import _REDIRECT, integrate_features, update_features
+from .measurement import measurement_predict
+from .motion import motion_predict
+from .state import FilterState, replace
+from .update import kalman_update
+
+
+def add_features(state: FilterState, image: torch.Tensor, cfg: SlamConfig,
+                 is_redirect: bool = False,
+                 should_add=True,
+                 is_initial: bool = False) -> FilterState:
+    """Detection + filtering + integration (addFeatures, SLAM.cpp:552-562)
+    including the insureEnoughFeatures raw-count escalation
+    (SLAM.cpp:777-808). ``should_add`` (bool or 0-d bool tensor) masks the
+    whole operation."""
+    if is_redirect:
+        raise NotImplementedError(_REDIRECT)
+    lm = state.lm
+    # proximity set: every active landmark's predicted + matched pixel;
+    # never-predicted/never-matched slots hold zeros (the reference's
+    # stale-field semantics, SLAM.cpp:663-705)
+    avoid = torch.cat([lm.pred, lm.match_px], dim=0)
+    avoid_valid = torch.cat([lm.active, lm.active])
+    n_matched = torch.sum(lm.matched & lm.active)
+    n_map = torch.sum(lm.active)
+    base = cfg.n_initial_raws if is_initial else cfg.n_process_raws
+
+    pix, kept, raw_rank, resp = gftt_candidates(image, cfg)
+    fok = candidate_filters(pix, cfg, avoid, avoid_valid, n_matched)
+    raws = escalate_raws(kept, raw_rank, fok, n_map, 0, base, cfg)
+    kept_final = kept & fok & (raw_rank < raws)
+
+    n_free = torch.sum(~state.lm.active)
+    corners, valid = select_new_corners(pix, kept_final, resp,
+                                        cfg.max_new_per_frame, n_free)
+    valid = valid & torch.as_tensor(should_add, device=valid.device)
+    return integrate_features(state, image, corners, valid, cfg)
+
+
+def initialize(state: FilterState, image: torch.Tensor,
+               cfg: SlamConfig) -> FilterState:
+    """Initial map construction (initializeParameters -> addFeatures,
+    SLAM.cpp:348-350)."""
+    return add_features(state, image, cfg, is_redirect=False,
+                        should_add=True, is_initial=True)
+
+
+def slam_step(state: FilterState, image: torch.Tensor,
+              odo_prev: torch.Tensor, odo_cur: torch.Tensor,
+              redirect: bool, cfg: SlamConfig, *,
+              allow_detect: bool = True):
+    """One frame. Returns (new_state, outputs dict).
+
+    ``allow_detect=False`` runs the step without the detection/integration
+    pipeline. With ``cfg.gate_detection`` the detect-when-starved trigger
+    (matches < min_num, SLAM.cpp:552-562) is read on the host: one device
+    sync per frame.
+    """
+    if redirect:
+        raise NotImplementedError(_REDIRECT)
+    state, cache = motion_predict(state, odo_prev, odo_cur, cfg)
+    state, cache = measurement_predict(state, cache, cfg)
+    state = data_association(state, image, cfg)
+    state = kalman_update(state, cache, cfg)
+    state = update_features(state, cfg)
+    if allow_detect:
+        n_matched = torch.sum(state.lm.matched & state.lm.active)
+        if cfg.gate_detection:
+            if int(n_matched) < cfg.min_num:
+                state = add_features(state, image, cfg, should_add=True)
+        else:
+            state = add_features(state, image, cfg,
+                                 should_add=n_matched < cfg.min_num)
+
+    state = replace(state, frame=state.frame + 1)
+    lm = state.lm
+    outputs = dict(
+        pose=state.x[-4:],
+        pose_sqrt_cov=torch.sqrt(torch.clamp(
+            torch.einsum("ij,ij->j", state.S[:, -4:], state.S[:, -4:]),
+            min=0.0)),
+        n_map=torch.sum(lm.active),
+        n_visible=torch.sum(lm.visible & lm.active),
+        n_matched=torch.sum(lm.matched & lm.active),
+        redirected=torch.tensor(False, device=state.x.device),
+        lm_lid=lm.lid,
+        lm_active=lm.active,
+        lm_matched=lm.matched & lm.active,
+        lm_match_px=lm.match_px,
+        lm_xyz=lm.xyz,
+        health=health_check(state, cfg),
+        repairs=torch.stack([state.n_repairs, state.n_escalations,
+                             state.n_skipped]),
+    )
+    return state, outputs

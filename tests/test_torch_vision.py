@@ -1,0 +1,178 @@
+"""PyTorch port: the plain versions of the two vision kernels.
+
+On the CPU the port's wrappers compute the plain PyTorch versions
+(``ncc_score_map_ref``, ``warp_bilinear_ref``); the CUDA kernels themselves
+are held against these on the card by ``chip_smoke.py``. Here the plain
+versions are held against the JAX package's Pallas kernels, run in
+interpret mode as ``tests/test_pallas_vision.py`` runs them, and against
+direct numpy oracles, on seeded inputs.
+
+Tolerances: float32 inputs, 1e-4 absolute on NCC scores (in [-1, 1]) and on
+warped values (up to 255, so ~1e-6 relative) — the two implementations sum
+in different orders; float64 comparisons against the oracles use 1e-9.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cv_monoslam_tpu.ops.pallas_vision import ncc_score_map, warp_bilinear
+from cv_monoslam_tpu_torch.config import SlamConfig
+from cv_monoslam_tpu_torch.frontend import matching
+from cv_monoslam_tpu_torch.ops import vision
+
+PM, W1, PI = 17, 21, 21
+RG = W1 + PM - 1
+
+
+def _ncc_direct(regions, patches, w1):
+    """Direct zero-mean NCC (reference formula, SLAM.cpp:3141-3166)."""
+    m, _, _ = regions.shape
+    pm = patches.shape[-1]
+    out = np.zeros((m, w1, w1))
+    for k in range(m):
+        pc = patches[k] - patches[k].mean()
+        pn = np.sqrt((pc * pc).sum())
+        for dy in range(w1):
+            for dx in range(w1):
+                w = regions[k, dy:dy + pm, dx:dx + pm]
+                wc = w - w.mean()
+                den = np.sqrt((wc * wc).sum()) * pn
+                out[k, dy, dx] = (wc * pc).sum() / den if den > 0 else 0.0
+    return out
+
+
+def _ncc_inputs(m, seed):
+    rng = np.random.default_rng(seed)
+    regions = rng.integers(0, 256, (m, RG, RG)).astype(np.float32)
+    patches = rng.integers(0, 256, (m, PM, PM)).astype(np.float32)
+    regions[0, 3:3 + PM, 4:4 + PM] = patches[0]      # planted exact match
+    regions[1] = 7.0                                  # flat windows
+    patches[2] = 42.0                                 # flat template
+    return regions, patches
+
+
+def test_ncc_plain_matches_pallas_interpret_m37():
+    """M = 37: not a multiple of any block size (the Pallas wrapper pads
+    to its 128-lane block)."""
+    regions, patches = _ncc_inputs(37, 0)
+    got = vision.ncc_score_map_ref(torch.as_tensor(regions),
+                                   torch.as_tensor(patches), pm=PM, w1=W1)
+    want = np.asarray(ncc_score_map(jnp.asarray(regions),
+                                    jnp.asarray(patches), pm=PM, w1=W1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    assert float(got[0, 3, 4]) > 0.999
+    assert float(got[2].abs().max()) == 0.0          # flat template
+    assert float(got[1].abs().max()) < 5e-3          # flat window (roundoff)
+
+
+def test_ncc_plain_matches_direct_oracle_f64():
+    regions, patches = _ncc_inputs(4, 1)
+    f64 = torch.float64
+    got = vision.ncc_score_map_ref(torch.as_tensor(regions, dtype=f64),
+                                   torch.as_tensor(patches, dtype=f64),
+                                   pm=PM, w1=W1)
+    want = _ncc_direct(regions.astype(np.float64),
+                       patches.astype(np.float64), W1)
+    # the flat window's variance is exactly 0 in the oracle but a roundoff
+    # residue in the running sums: compare it separately
+    np.testing.assert_allclose(got.numpy()[[0, 2, 3]], want[[0, 2, 3]],
+                               rtol=0, atol=1e-9)
+    assert float(got[1].abs().max()) < 1e-6
+
+
+def test_ncc_wrapper_on_cpu_uses_plain_version():
+    regions, patches = _ncc_inputs(5, 2)
+    r, p = torch.as_tensor(regions), torch.as_tensor(patches)
+    before = vision.ncc_score_map.launches
+    got = vision.ncc_score_map(r, p, pm=PM, w1=W1)
+    assert vision.ncc_score_map.launches == before    # no kernel launch
+    torch.testing.assert_close(
+        got, vision.ncc_score_map_ref(r, p, pm=PM, w1=W1), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        vision.ncc_score_map(r[:, 1:], p, pm=PM, w1=W1)
+
+
+def test_ncc_scores_uint8_frame_equals_float32_frame():
+    """uint8-transported frames are cast on the device before the region
+    gather: scores must equal those from a float32 frame (the JAX
+    package's r5 regression, matching.py:158-165)."""
+    rng = np.random.default_rng(7)
+    img_u8 = rng.integers(0, 256, (120, 160), dtype=np.uint8)
+    m = 24
+    cfg = SlamConfig()
+    hp = cfg.hp_match
+    centers = np.stack([rng.integers(30, 130, m),
+                        rng.integers(30, 90, m)], axis=1).astype(np.int32)
+    patches = torch.as_tensor(np.stack([
+        img_u8[v - hp:v + hp + 1, u - hp:u + hp + 1].astype(np.float32)
+        for u, v in centers]))
+    c = torch.as_tensor(centers)
+    for backend in ("xla", "pallas"):
+        cfg2 = dataclasses.replace(cfg, vision_backend=backend)
+        s_u8, _ = matching.ncc_scores(
+            torch.as_tensor(img_u8).to(torch.float32), c, patches, cfg2)
+        s_f32, _ = matching.ncc_scores(
+            torch.as_tensor(img_u8.astype(np.float32)), c, patches, cfg2)
+        torch.testing.assert_close(s_u8, s_f32, rtol=0, atol=0)
+        best = s_u8.reshape(m, -1).max(dim=1).values
+        assert bool((best > 0.95).all()), backend
+
+
+def _bilinear_direct(patches, su, sv):
+    m, pi, _ = patches.shape
+    out = np.zeros_like(su)
+    for k in range(m):
+        for idx in np.ndindex(su.shape[1:]):
+            u, v = su[(k,) + idx], sv[(k,) + idx]
+            u0, v0 = int(np.floor(u)), int(np.floor(v))
+            if u0 < 0 or v0 < 0 or u0 + 1 > pi - 1 or v0 + 1 > pi - 1:
+                continue
+            du, dv = u - u0, v - v0
+            p = patches[k]
+            out[(k,) + idx] = (p[v0, u0] * (1 - du) * (1 - dv)
+                               + p[v0, u0 + 1] * du * (1 - dv)
+                               + p[v0 + 1, u0] * (1 - du) * dv
+                               + p[v0 + 1, u0 + 1] * du * dv)
+    return out
+
+
+def _warp_inputs(m, seed):
+    rng = np.random.default_rng(seed)
+    patches = rng.integers(0, 256, (m, PI, PI)).astype(np.float32)
+    d = np.arange(-(PM // 2), PM // 2 + 1, dtype=np.float64)
+    dv, du = np.meshgrid(d, d, indexing="ij")
+    a = np.eye(2)[None] + rng.normal(0, 0.15, (m, 2, 2))
+    a[::5] *= 1.4                                     # some out of bounds
+    sv = PI // 2 + a[:, 0, 0, None, None] * dv + a[:, 0, 1, None, None] * du
+    su = PI // 2 + a[:, 1, 0, None, None] * dv + a[:, 1, 1, None, None] * du
+    return patches, su.astype(np.float32), sv.astype(np.float32)
+
+
+def test_warp_plain_matches_pallas_interpret_and_oracle():
+    patches, su, sv = _warp_inputs(37, 3)
+    got = vision.warp_bilinear_ref(torch.as_tensor(patches),
+                                   torch.as_tensor(su), torch.as_tensor(sv))
+    want = np.asarray(warp_bilinear(jnp.asarray(patches), jnp.asarray(su),
+                                    jnp.asarray(sv)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    direct = _bilinear_direct(patches.astype(np.float64),
+                              su.astype(np.float64), sv.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), direct, rtol=0, atol=1e-4)
+    assert (got.numpy() == 0).sum() > 0               # invalid samples
+
+
+def test_warp_identity_zeroes_last_row_and_column():
+    rng = np.random.default_rng(4)
+    pi = 9
+    patches = torch.as_tensor(rng.uniform(0, 255, (1, pi, pi)))
+    g = torch.arange(pi, dtype=torch.float64)
+    sv, su = torch.meshgrid(g, g, indexing="ij")
+    got = vision.warp_bilinear(patches, su[None], sv[None])
+    torch.testing.assert_close(got[0, :-1, :-1], patches[0, :-1, :-1],
+                               rtol=0, atol=1e-9)
+    assert float(got[0, -1].abs().max()) == 0.0
+    assert float(got[0, :, -1].abs().max()) == 0.0
