@@ -13,14 +13,22 @@ non-zero and prints no result):
 3. kernel vs plain version on the card, for both kernels at M = 32, 37
    and 576 on seeded random inputs (integer-valued regions like uint8
    frames, a flat window, a flat template, a planted exact match), max
-   |diff| <= 1e-4; then each kernel's time (CUDA events, median over >= 50
-   launches on perturbed inputs), its plain version's time and its bound;
+   |diff| <= 1e-4. The NCC kernel normalizes the template itself and also
+   returns it, so it is held to three limits: (a) its templates against
+   the plain normalization, <= 1e-6; (b) its scores against the plain
+   score arithmetic on its own templates, <= 2e-5; (c) its scores against
+   the plain version end to end, <= 1e-4; also for one non-default shape
+   (pm = 9, w1 = 13), which takes the kernel's run-time bounds. Then the launch floor (a kernel
+   that does nothing, bare and after the warp's ``torch.empty``) and each
+   kernel's time (CUDA events, median over 60 launches on perturbed
+   inputs): wrapper, kernel only into preallocated outputs, host enqueue
+   time, plain version, bound;
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
    timed after a warm-up chunk; checks the launch counters (each kernel
-   once per tracked frame), the repair counters, ATE and matches, and holds
-   both kernels against their plain versions on frames captured from the
-   run;
+   once per tracked frame, and the plain template normalization never
+   called), the repair counters, ATE and matches, and holds both kernels
+   against their plain versions on frames captured from the run;
 5. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -33,11 +41,14 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 import numpy as np
 import torch
 
 TOL = 1e-4          # max |kernel - plain| for both kernels (values <= 255)
+TOL_PHAT = 1e-6     # NCC (a): kernel's templates vs plain normalization
+TOL_CORE = 2e-5     # NCC (b): kernel's scores vs plain scores on its p_hat
 N_TIMED = 60        # timed launches per measurement (median reported)
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12      # H100 SXM FP32 outside the tensor cores, FLOP/s
@@ -65,11 +76,13 @@ def card_info() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def ncc_inputs(m: int, rng: np.random.Generator, dev):
-    regions = rng.integers(0, 256, (m, RG, RG)).astype(np.float32)
-    patches = rng.integers(0, 256, (m, PM, PM)).astype(np.float32)
+def ncc_inputs(m: int, rng: np.random.Generator, dev, pm: int = PM,
+               w1: int = W1):
+    rg = w1 + pm - 1
+    regions = rng.integers(0, 256, (m, rg, rg)).astype(np.float32)
+    patches = rng.integers(0, 256, (m, pm, pm)).astype(np.float32)
     # planted exact copy of template 0 at offset (3, 4): NCC == 1 there
-    regions[0, 3:3 + PM, 4:4 + PM] = patches[0]
+    regions[0, 3:3 + pm, 4:4 + pm] = patches[0]
     if m > 2:
         regions[1] = 7.0                      # flat windows -> scores 0
         patches[2] = 42.0                     # flat template -> scores 0
@@ -131,10 +144,11 @@ def _bound(nbytes: int, flops: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, arg_sets) -> float:
+def time_ms(fn, arg_sets) -> Tuple[float, float]:
     """Median device time of one call (CUDA events around each call),
     cycling through ``arg_sets`` so no two consecutive calls see the same
-    inputs.
+    inputs; and the host's time to enqueue one call (host clock over the
+    timed calls, which return before the device runs them), both in ms.
 
     A kernel of a few microseconds finishes before the host has enqueued
     the next one, so events around it would time the host's enqueue gap.
@@ -154,13 +168,17 @@ def time_ms(fn, arg_sets) -> float:
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(N_TIMED)]
     torch.cuda._sleep(int(backlog_s * SM_CLOCK_HZ))
+    in_call = 0.0
     for i, (s, e) in enumerate(ev):
         args = arg_sets[i % len(arg_sets)]
         s.record()
+        t0 = time.perf_counter()
         fn(*args)
+        in_call += time.perf_counter() - t0
         e.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
+    return (statistics.median(s.elapsed_time(e) for s, e in ev),
+            in_call / N_TIMED * 1e3)
 
 
 def perturbed(base, rng, dev, n=N_TIMED):
@@ -189,26 +207,52 @@ def phase_build() -> float:
     return secs
 
 
+def check_ncc(regions, patches, label: str, errs: dict, *,
+              pm: int = PM, w1: int = W1) -> torch.Tensor:
+    """Hold one NCC launch to its three limits; returns the scores."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    got, p_hat = vision.ncc_score_map_with_templates(
+        regions, patches, pm=pm, w1=w1)
+    torch.cuda.synchronize()
+    e_phat = float((p_hat - vision.normalized_templates(patches))
+                   .abs().max())
+    e_core = float((got - vision._ncc_core_ref(regions, p_hat, pm=pm,
+                                                w1=w1)).abs().max())
+    e_full = float((got - vision.ncc_score_map_ref(regions, patches, pm=pm,
+                                                   w1=w1)).abs().max())
+    p_sum = float(p_hat.double().sum(dim=(1, 2)).abs().max())
+    log(f"[check] ncc  {label}: (a) max|p_hat-plain|={e_phat:.3e} "
+        f"(b) max|kernel-plain on its p_hat|={e_core:.3e} "
+        f"(c) max|kernel-plain|={e_full:.3e} max|sum p_hat|={p_sum:.2e}")
+    for key, e in (("ncc_p_hat", e_phat), ("ncc_core", e_core),
+                   ("ncc_score_map", e_full)):
+        errs[key] = max(errs[key], e)
+    if not (e_phat <= TOL_PHAT and e_core <= TOL_CORE and e_full <= TOL
+            and bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(p_hat).all())):
+        raise AssertionError(f"ncc kernel check failed: {label}")
+    return got
+
+
 def phase_kernel_checks(dev) -> dict:
     from cv_monoslam_tpu_torch.ops import vision
 
     rng = np.random.default_rng(0)
-    errs = {"ncc_score_map": 0.0, "warp_bilinear": 0.0}
+    errs = {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
+            "warp_bilinear": 0.0}
     for m in (32, 37, 576):
         regions, patches = ncc_inputs(m, rng, dev)
-        got = vision.ncc_score_map(regions, patches, pm=PM, w1=W1)
-        want = vision.ncc_score_map_ref(regions, patches, pm=PM, w1=W1)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        errs["ncc_score_map"] = max(errs["ncc_score_map"], err)
+        got = check_ncc(regions, patches, f"M={m}", errs)
         planted = float(got[0, 3, 4])
         flat = float(got[1:3].abs().max())
-        log(f"[check] ncc  M={m}: max|kernel-plain|={err:.3e} "
-            f"planted={planted:.6f} flat max|s|={flat:.3e}")
+        public = vision.ncc_score_map(regions, patches, pm=PM, w1=W1)
+        log(f"[check] ncc  M={m}: planted={planted:.6f} "
+            f"flat max|s|={flat:.3e}")
         # a flat window's variance is a float32 roundoff residue: its
         # score is ~0, not exactly 0 (same bound as the JAX package's test)
-        if not (err <= TOL and planted >= 0.999 and flat <= 5e-3
-                and bool(torch.isfinite(got).all())):
+        if not (planted >= 0.999 and flat <= 5e-3
+                and bool((public == got).all())):
             raise AssertionError(f"ncc kernel check failed at M={m}")
 
         p, su, sv = warp_inputs(m, rng, dev)
@@ -226,6 +270,16 @@ def phase_kernel_checks(dev) -> dict:
             f"zero samples={invalid}")
         if not (err <= TOL and ident <= TOL and edge == 0.0):
             raise AssertionError(f"warp kernel check failed at M={m}")
+
+    # a shape no configuration uses: the run-time bounds of the NCC kernel
+    pm, w1, m = 9, 13, 37
+    regions, patches = ncc_inputs(m, rng, dev, pm=pm, w1=w1)
+    if vision.ncc_launch_plan(m, pm, w1)["compiled"]:
+        raise AssertionError("non-default shape took the compiled shape")
+    got = check_ncc(regions, patches, f"pm={pm} w1={w1} M={m}", errs,
+                    pm=pm, w1=w1)
+    if not float(got[0, 3, 4]) >= 0.999:
+        raise AssertionError("ncc non-default shape: planted match lost")
     return errs
 
 
@@ -235,23 +289,48 @@ def phase_kernel_times(dev) -> dict:
 
     rng = np.random.default_rng(1)
     out = {"ncc_score_map": {}, "warp_bilinear": {}}
+
+    # the launch floor: a kernel that does nothing through the same ctypes
+    # path, bare and after allocating the warp's output at M = 576
+    none = [()] * N_TIMED
+    bare, bare_host = time_ms(lambda: vision.empty_launch(dev), none)
+
+    def alloc_and_launch():
+        torch.empty((576, PM, PM), dtype=torch.float32, device=dev)
+        vision.empty_launch(dev)
+    floor, floor_host = time_ms(alloc_and_launch, none)
+    out["launch_floor_ms"] = floor
+    out["bare_launch_ms"] = bare
+    log(f"[time] launch_floor_ms: bare launch {bare:.4f} ms (host "
+        f"{bare_host:.4f}), torch.empty + launch {floor:.4f} ms (host "
+        f"{floor_host:.4f})")
+
     for m in (32, 576):
         base = ncc_inputs(m, rng, dev)
         sets = perturbed(base, rng, dev)
-        k = time_ms(lambda r, p: vision.ncc_score_map(r, p, pm=PM, w1=W1),
-                    sets)
-        pl = time_ms(lambda r, p: vision.ncc_score_map_ref(
+        k, host = time_ms(
+            lambda r, p: vision.ncc_score_map(r, p, pm=PM, w1=W1), sets)
+        pl, _ = time_ms(lambda r, p: vision.ncc_score_map_ref(
             r, p, pm=PM, w1=W1), sets)
+        # kernel only: the launch into preallocated outputs
+        pre = (torch.empty((m, W1, W1), dtype=torch.float32, device=dev),
+               torch.empty((m, PM, PM), dtype=torch.float32, device=dev))
+        only, _ = time_ms(
+            lambda r, p: vision.ncc_score_map_with_templates(
+                r, p, pm=PM, w1=W1, out=pre), sets)
         b = ncc_bound(m)
-        out["ncc_score_map"][m] = dict(ms=k, plain_ms=pl, library_ms=None,
-                                       **b)
-        log(f"[time] ncc  M={m}: kernel {k:.4f} ms, plain {pl:.4f} ms, "
-            f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']})")
+        out["ncc_score_map"][m] = dict(
+            ms=k, host_ms=host, kernel_only_ms=only, plain_ms=pl,
+            library_ms=None, **b)
+        log(f"[time] ncc  M={m}: kernel {k:.4f} ms (host {host:.4f}), "
+            f"kernel only {only:.4f} ms, plain {pl:.4f} ms, "
+            f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+            f"launch floor {floor:.4f} ms")
 
         base = warp_inputs(m, rng, dev)
         sets = perturbed(base, rng, dev)
-        k = time_ms(vision.warp_bilinear, sets)
-        pl = time_ms(vision.warp_bilinear_ref, sets)
+        k, host = time_ms(vision.warp_bilinear, sets)
+        pl, _ = time_ms(vision.warp_bilinear_ref, sets)
 
         # nearest library call: grid_sample, which zero-pads out-of-patch
         # taps instead of dropping the sample — not the same function
@@ -259,13 +338,17 @@ def phase_kernel_times(dev) -> dict:
             grid = torch.stack([su, sv], dim=-1) * (2.0 / (PI - 1)) - 1.0
             return F.grid_sample(p[:, None], grid, mode="bilinear",
                                  padding_mode="zeros", align_corners=True)
-        lib = time_ms(gs, sets)
+        lib, _ = time_ms(gs, sets)
         b = warp_bound(m)
-        out["warp_bilinear"][m] = dict(ms=k, plain_ms=pl, library_ms=None,
-                                       grid_sample_ms=lib, **b)
-        log(f"[time] warp M={m}: kernel {k:.4f} ms, plain {pl:.4f} ms, "
+        out["warp_bilinear"][m] = dict(ms=k, host_ms=host, plain_ms=pl,
+                                       library_ms=None, grid_sample_ms=lib,
+                                       **b)
+        log(f"[time] warp M={m}: kernel {k:.4f} ms (host {host:.4f}), "
+            f"plain {pl:.4f} ms, "
             f"grid_sample (not the same function) {lib:.4f} ms, "
-            f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']})")
+            f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+            f"launch floor {floor:.4f} ms "
+            f"(kernel / floor = {k / floor:.2f})")
     return out
 
 
@@ -298,6 +381,7 @@ def phase_slice(dev, errs: dict) -> dict:
 
     vision.ncc_score_map.launches = 0
     vision.warp_bilinear.launches = 0
+    vision.normalized_templates.calls = 0
     matching.ncc_score_map, matching.warp_bilinear = cap_ncc, cap_warp
     try:
         sess = SlamSession(cfg, seq, track, device=dev)
@@ -305,6 +389,7 @@ def phase_slice(dev, errs: dict) -> dict:
     finally:
         matching.ncc_score_map, matching.warp_bilinear = real_ncc, real_warp
     torch.cuda.synchronize()
+    warm = (vision.ncc_score_map.launches, vision.warp_bilinear.launches)
     t0 = time.perf_counter()
     n0 = len(sess.records)
     sess.run(chunk=chunk)
@@ -312,6 +397,9 @@ def phase_slice(dev, errs: dict) -> dict:
     dt = time.perf_counter() - t0
     launches = {"ncc_score_map": vision.ncc_score_map.launches,
                 "warp_bilinear": vision.warp_bilinear.launches}
+    timed_launches = {"ncc_score_map": launches["ncc_score_map"] - warm[0],
+                      "warp_bilinear": launches["warp_bilinear"] - warm[1]}
+    plain_normalizations = vision.normalized_templates.calls
 
     recs = sess.records
     n_timed = len(recs) - n0
@@ -326,18 +414,14 @@ def phase_slice(dev, errs: dict) -> dict:
                matched_min=min(nm), matched_mean=float(np.mean(nm)),
                peak_map=max(r.n_map for r in recs),
                repairs=recs[-1].n_repairs, escalations=recs[-1].n_escalations,
-               skipped=recs[-1].n_skipped, launches=launches)
+               skipped=recs[-1].n_skipped, launches=launches,
+               timed_launches=timed_launches,
+               plain_normalizations=plain_normalizations)
     log("[slice] " + json.dumps(res))
 
     # kernel vs plain on the captured real frames (not counted above)
     for regions, patches in captured["ncc"]:
-        e = float((vision.ncc_score_map(regions, patches, pm=PM, w1=W1)
-                   - vision.ncc_score_map_ref(regions, patches, pm=PM,
-                                              w1=W1)).abs().max())
-        errs["ncc_score_map"] = max(errs["ncc_score_map"], e)
-        log(f"[check] ncc  on a fixture frame: max|kernel-plain|={e:.3e}")
-        if not e <= TOL:
-            raise AssertionError("ncc kernel disagrees on a fixture frame")
+        check_ncc(regions, patches, "on a fixture frame", errs)
     for patches, su, sv in captured["warp"]:
         e = float((vision.warp_bilinear(patches, su, sv)
                    - vision.warp_bilinear_ref(patches, su, sv))
@@ -353,9 +437,13 @@ def phase_slice(dev, errs: dict) -> dict:
     if not np.all(np.isfinite(traj)):
         problems.append("non-finite poses")
     for name, n in launches.items():
-        if n != len(recs):
-            problems.append(f"{name} launched {n} times for "
-                            f"{len(recs)} tracked frames")
+        if n != len(recs) or timed_launches[name] != n_timed:
+            problems.append(f"{name} launched {n} times for {len(recs)} "
+                            f"tracked frames ({timed_launches[name]} for "
+                            f"the {n_timed} timed ones)")
+    if plain_normalizations:
+        problems.append(f"the plain template normalization ran "
+                        f"{plain_normalizations} times on the CUDA path")
     if res["escalations"] or res["skipped"]:
         problems.append("escalated repairs or skipped updates")
     if not ate < 0.03:
@@ -456,9 +544,18 @@ def main() -> int:
                  ms=t32["ms"], plain_ms=t32["plain_ms"],
                  bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
                  library_ms=None,
+                 launch_floor_ms=times["launch_floor_ms"],
+                 bare_launch_ms=times["bare_launch_ms"],
+                 host_ms=t32["host_ms"],
                  ms_m576=t576["ms"], plain_ms_m576=t576["plain_ms"],
                  bound_ms_m576=t576["bound_ms"],
-                 bound_by_m576=t576["bound_by"])
+                 bound_by_m576=t576["bound_by"],
+                 host_ms_m576=t576["host_ms"])
+        if name == "ncc_score_map":
+            k.update(max_abs_err_p_hat=errs["ncc_p_hat"],
+                     max_abs_err_on_own_p_hat=errs["ncc_core"])
+            k["kernel_only_ms"] = t32["kernel_only_ms"]
+            k["kernel_only_ms_m576"] = t576["kernel_only_ms"]
         if "grid_sample_ms" in t32:
             k["grid_sample_ms"] = t32["grid_sample_ms"]
             k["grid_sample_ms_m576"] = t576["grid_sample_ms"]

@@ -7,6 +7,7 @@
 // cv_monoslam_tpu_torch/ops/vision.py (ncc_score_map_ref, warp_bilinear_ref),
 // which chip_smoke.py holds them against on the card.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -14,78 +15,313 @@ namespace {
 // ---------------------------------------------------------------------------
 // NCC score map
 //
-// Replaces cv_monoslam_tpu/ops/pallas_vision.py::ncc_score_map (kernel body
-// _ncc_kernel). For each landmark m, with the template already zero-meaned
-// and unit-normed by the wrapper (p_hat; a flat template is all zeros):
+// Replaces cv_monoslam_tpu/ops/pallas_vision.py::ncc_score_map: the kernel
+// body _ncc_kernel AND the template normalization its wrapper does before
+// the call. For each landmark m, with raw template p (pm, pm) and search
+// region reg (rg, rg), rg = w1 + pm - 1:
 //
+//   c           = (p - mean(p)) - mean(p - mean(p))        centred twice
+//   p_hat       = c / sqrt(sum c^2), or 0 for a flat template
 //   num[oy,ox]  = sum_{py,px} p_hat[py,px] * reg[oy+py, ox+px]
 //   wsum, wsq   = window sum and sum of squares of reg over the same taps
 //   wvar        = max(wsq - wsum^2 / n, 0)
 //   score       = num / sqrt(wvar), or 0 where sqrt(wvar) == 0
 //
-// Mapping: the TPU kernel puts landmarks on the 128-wide lane axis because
-// the TPU's vector unit wants every tap as a full lane vector. On the GPU
-// the natural mapping is one thread block per landmark, one thread per
-// output offset (21 x 21 = 441 at the default sizes): the 37x37 region and
-// the 17x17 template sit in shared memory (5.5 KB + 1.2 KB) and every
-// thread walks its 289 taps accumulating num, wsum and wsq in registers.
-// No intermediate touches device memory.
+// One launch does all of it; p_hat is also written out (second output) so
+// that the normalization and the score arithmetic can be checked apart.
 //
-// Bound on an H100 (M = 576, the large-state shape): bytes moved are
-// regions 3.15 MB + templates 0.67 MB + scores 1.02 MB ~ 4.8 MB, ~1.4 us at
-// 3.35 TB/s; the work is ~2*289*441*M ~ 147 MFLOP of FP32 FMA plus the
-// window sums, ~2-3 us at 67 TFLOP/s FP32. Both are a few microseconds, so
-// the floor is compute or launch, not memory. At M = 32 (config 1) the
-// launch itself dominates.
+// What bounds it on an H100. Bytes (M = 576): regions 3.15 MB + templates
+// 0.67 MB + scores 1.02 MB, 1.4 us at 3.35 TB/s. Operations: 2*289*441*M
+// ~ 147 MFLOP of FP32 multiply-add plus the separable window sums, 2.6 us at
+// 67 TFLOP/s. So the bound is operations, a few microseconds, and below it
+// sits the card's launch floor: a kernel that does nothing reads 0.0048 ms
+// when timed as this one is (empty_kernel at the end of this file;
+// chip_smoke.py prints it as launch_floor_ms). The first version of this
+// kernel (one thread per offset, every tap two shared-memory loads for one
+// multiply-add, wsum and wsq recomputed by every thread, the template
+// normalized by eight torch launches before it) was bound by shared-memory
+// loads and by those launches: 0.038 / 0.067 ms at M = 32 / 576. This one
+// reads 0.010 / 0.016 ms (H100 80GB HBM3 at 700 W, chip_smoke.py); what is
+// left above the floor is a chain of short phases (copy in, normalize,
+// column sums, window sums) that each wait on memory or on a barrier, and
+// the tap loop.
+//
+// Design.
+// * Mapping. The TPU kernel puts landmarks on the 128-wide lane axis for
+//   its vector unit. Here a block owns one landmark; in the tap loop a
+//   thread owns a 1 x TW strip of neighbouring offsets of one output row, so
+//   a landmark takes w1 * ceil(w1 / TW) = 63 threads there at the default
+//   shape.
+// * Taps from registers. Per template row a thread loads the row's pm
+//   template values (16-byte broadcast loads from rows padded to a multiple
+//   of 4) and its pm + TW - 1 region values into registers once and does
+//   TW * pm multiply-adds on them: (5 + 23) / 119 = 0.24 shared-memory
+//   loads per multiply-add instead of 2. Threads of a warp take neighbouring
+//   rows and the region's row pitch is odd, so its scalar loads are free of
+//   bank conflicts but for a few two-way ones where a warp wraps to the next
+//   strip. 16-byte region loads would need strips that start on a multiple
+//   of 4, that is TW = 8 and 24 columns for 21 offsets: 14 % more
+//   multiply-adds for the same shared-memory traffic.
+// * Window sums separably, in the plain version's order and with every
+//   operation rounded on its own, so that wsum and wsq round exactly as in
+//   ncc_score_map_ref: column sums cs and cs2 over the px window once per
+//   staged region row (a sliding window of TW values in registers), then a
+//   phase of its own that adds pm of them per offset, each task loading a
+//   column sum once for WG neighbouring rows. (Added inside the tap loop,
+//   every thread reloaded pm column sums per offset and shared-memory
+//   traffic bound the loop at M = 576: wrapper 0.0164 ms against 0.0157.)
+// * Template normalization in a fixed order. Every warp reduces the whole
+//   template itself: lane-strided partial sums, then an xor-shuffle tree,
+//   which leaves the same bits in every lane of every warp in every run. No
+//   atomics, no cross-warp exchange, so no barrier inside the reduction. It
+//   runs while the region's copies are still in flight.
+// * Blocks. A block owns its whole landmark, so the region is staged once,
+//   and has one thread per column-sum task (rg * 3 = 111 -> 128 threads):
+//   576 blocks at M = 576, 4-5 resident on each of the 132 SMs, and 32
+//   blocks at M = 32. The other split that was tried, a grid of (M, 3) in
+//   which a block owns a band of 7 output rows and stages the 23 region rows
+//   it needs (96 blocks at M = 32), was no faster, because a thread's serial
+//   work, not the number of SMs in use, sets the time there: kernel only,
+//   M = 32, 0.0103 ms whole against 0.0106 ms in bands; M = 576, 0.0156
+//   against 0.0216 ms (H100 80GB HBM3 at 700 W, both timed by a version of
+//   chip_smoke.py that could launch either). The bands were taken out.
+// * Shapes. pm and w1 are template parameters; <17, 21> is the shape every
+//   configuration uses and unrolls the px loops. <0, 0> is the same kernel
+//   with run-time bounds for any other shape (taps in chunks of 4).
+//
+// Deliberately not used. Tensor cores / wgmma: each landmark's product is a
+// (441 x 289) by (289 x 1) matrix-vector product in full float32 against
+// its own template; no operand is shared between landmarks, so there is no
+// tile to form, and TF32 would break the 1e-4 tolerance. TMA and multi-stage
+// cp.async rings: a block stages one 5.5 KB region and one 1.2 KB template
+// once; there is no second tile whose load could overlap compute. Plain
+// cp.async is used for that one staging, because it measured faster
+// (0.0153 -> 0.0117 ms at M = 32 with load-then-store pairs replaced).
 // ---------------------------------------------------------------------------
 
+constexpr int TW = 7;   // offsets per thread: a 1 x TW strip of an output row
+constexpr int WG = 4;   // output rows per window-sum task (one column each)
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// One block per landmark. blockDim.x is a multiple of 32 and >= w1 *
+// ceil(w1 / TW); the wrapper gives rg * ceil(w1 / TW) threads rounded up, one
+// per column-sum task, of which the first w1 * ceil(w1 / TW) go on to the
+// taps.
+// Dynamic shared memory, with C = TW * ceil(w1 / TW), tp = pm rounded up to
+// a multiple of 4 and pitch = (C + tp - 1) | 1 (vision.ncc_launch_plan
+// computes the same):
+//   float  ph[pm][tp]       normalized template, rows zero-padded
+//   float2 cs[rg][C]        column sums (.x) and sums of squares (.y)
+//   float2 ws[w1][C]        window sums
+//   float  reg[rg][pitch]   region rows, pad columns zeroed
+//   float  tpl[pm*pm]       raw template
+template <int PM, int W1>
 __global__ void ncc_score_map_kernel(const float* __restrict__ regions,
-                                     const float* __restrict__ p_hat,
-                                     float* __restrict__ out,
-                                     int pm, int w1) {
-  extern __shared__ float smem[];
+                                     const float* __restrict__ patches,
+                                     float* __restrict__ scores,
+                                     float* __restrict__ p_hat,
+                                     int pm_rt, int w1_rt) {
+  const int pm = PM > 0 ? PM : pm_rt;
+  const int w1 = W1 > 0 ? W1 : w1_rt;
   const int rg = w1 + pm - 1;
-  const int n_reg = rg * rg;
   const int n_tap = pm * pm;
-  float* reg = smem;                     // (rg, rg)
-  float* tpl = smem + n_reg;             // (pm, pm)
+  const int ntx = (w1 + TW - 1) / TW;      // strips per output row
+  const int csw = ntx * TW;
+  const int tp = (pm + 3) / 4 * 4;
+  const int pitch = (csw + tp - 1) | 1;
+
   const int m = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int lane = tid & 31;
 
-  const float* g_reg = regions + (size_t)m * n_reg;
-  const float* g_tpl = p_hat + (size_t)m * n_tap;
-  for (int i = tid; i < n_reg; i += nt) reg[i] = g_reg[i];
-  for (int i = tid; i < n_tap; i += nt) tpl[i] = g_tpl[i];
+  extern __shared__ float4 smem4[];
+  float* ph = reinterpret_cast<float*>(smem4);
+  float2* cs = reinterpret_cast<float2*>(ph + pm * tp);
+  float2* ws = cs + rg * csw;
+  float* reg = reinterpret_cast<float*>(ws + w1 * csw);
+  float* tpl = reg + rg * pitch;
+
+  // Stage the raw template, then the region's rows (contiguous in
+  // device memory), as two groups of asynchronous copies (cp.async, 4 bytes
+  // each: a landmark's base is not 16-byte aligned). All of a thread's
+  // copies are in flight at once (as load-then-store pairs each waited out a
+  // trip to device memory in turn), and the template is normalized while
+  // the region is still on its way.
+  const float* g_tpl = patches + (size_t)m * n_tap;
+  for (int i = tid; i < n_tap; i += nt)
+    __pipeline_memcpy_async(&tpl[i], &g_tpl[i], sizeof(float));
+  __pipeline_commit();
+  const float* g_reg = regions + (size_t)m * rg * rg;
+  for (int i = tid; i < rg * rg; i += nt) {
+    const int r = i / rg;
+    __pipeline_memcpy_async(&reg[r * pitch + (i - r * rg)], &g_reg[i],
+                            sizeof(float));
+  }
+  __pipeline_commit();
+  // columns >= rg of a shared row feed only offsets >= w1, which are never
+  // stored, and taps past pm, which are skipped: zeroed to keep them finite
+  for (int r = tid; r < rg; r += nt)
+    for (int c = rg; c < pitch; ++c) reg[r * pitch + c] = 0.0f;
+  for (int py = tid; py < pm; py += nt)     // template row padding
+    for (int px = pm; px < tp; ++px) ph[py * tp + px] = 0.0f;
+  __pipeline_wait_prior(1);               // the template has landed
   __syncthreads();
 
-  const float inv_n = 1.0f / (float)n_tap;
-  float* g_out = out + (size_t)m * w1 * w1;
-  for (int o = tid; o < w1 * w1; o += nt) {
-    const int oy = o / w1;
-    const int ox = o - oy * w1;
-    float num = 0.0f, wsum = 0.0f, wsq = 0.0f;
-    for (int py = 0; py < pm; ++py) {
-      const float* row = reg + (oy + py) * rg + ox;
-      const float* trow = tpl + py * pm;
-      float rs = 0.0f, rs2 = 0.0f;       // this row's column-window sums
-      for (int px = 0; px < pm; ++px) {
-        const float r = row[px];
-        num += trow[px] * r;
-        rs += r;
-        rs2 += r * r;
-      }
-      wsum += rs;
-      wsq += rs2;
-    }
-    // wsq and wsum^2/n nearly cancel on a low-texture window; an FMA here
-    // would round that difference otherwise than the plain version does,
-    // so each step is rounded on its own
-    const float wvar =
-        fmaxf(__fsub_rn(wsq, __fmul_rn(__fmul_rn(wsum, wsum), inv_n)), 0.0f);
-    const float den = sqrtf(wvar);
-    g_out[o] = den > 0.0f ? num / den : 0.0f;
+  // template statistics, the same bits in every lane of every warp; centred
+  // twice so that sum(p_hat) is at the roundoff of one value, not of n_tap
+  const float n = (float)n_tap;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = lane; i < n_tap; i += 32) s += tpl[i];
+  const float mean1 = warp_sum(s) / n;
+  s = 0.0f;
+#pragma unroll
+  for (int i = lane; i < n_tap; i += 32) s += tpl[i] - mean1;
+  const float mean2 = warp_sum(s) / n;
+  s = 0.0f;
+#pragma unroll
+  for (int i = lane; i < n_tap; i += 32) {
+    const float c = (tpl[i] - mean1) - mean2;
+    s = fmaf(c, c, s);
   }
+  const float norm = sqrtf(warp_sum(s));
+  for (int i = tid; i < n_tap; i += nt) {
+    const float c = (tpl[i] - mean1) - mean2;
+    const float v = norm > 0.0f ? c / norm : 0.0f;
+    const int py = i / pm;
+    ph[py * tp + (i - py * pm)] = v;
+    if (p_hat != nullptr) p_hat[(size_t)m * n_tap + i] = v;
+  }
+
+  __pipeline_wait_prior(0);               // the region has landed
+  __syncthreads();
+
+  // column sums over the px window for every staged row, one 1 x TW strip
+  // per task, in the plain version's order: cs = r0, cs2 = r0*r0, then
+  // cs += r, cs2 += r*r for px = 1..pm-1, each operation rounded on its own
+  for (int t = tid; t < rg * ntx; t += nt) {
+    const int r = t % rg;
+    const int c0 = (t / rg) * TW;
+    const float* row = reg + r * pitch + c0;
+    float win[TW], a[TW], b[TW];
+#pragma unroll
+    for (int j = 0; j < TW; ++j) {
+      win[j] = row[j];
+      a[j] = win[j];
+      b[j] = __fmul_rn(win[j], win[j]);
+    }
+#pragma unroll
+    for (int px = 1; px < pm; ++px) {
+#pragma unroll
+      for (int j = 0; j < TW - 1; ++j) win[j] = win[j + 1];
+      win[TW - 1] = row[px + TW - 1];
+#pragma unroll
+      for (int j = 0; j < TW; ++j) {
+        a[j] = __fadd_rn(a[j], win[j]);
+        b[j] = __fadd_rn(b[j], __fmul_rn(win[j], win[j]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TW; ++j)
+      cs[r * csw + c0 + j] = make_float2(a[j], b[j]);
+  }
+  __syncthreads();
+
+  // window sums: a task takes one column and WG neighbouring output rows,
+  // loads each of the WG + pm - 1 column sums it needs once and adds it to
+  // the rows it belongs to, py ascending as in the plain version. (Done in
+  // the tap loop, every thread would load pm column sums per offset.)
+  for (int t = tid; t < (w1 + WG - 1) / WG * csw; t += nt) {
+    const int o0 = t / csw * WG;
+    const int ox = t % csw;
+    float sa[WG], sb[WG];
+#pragma unroll
+    for (int i = 0; i < WG; ++i) sa[i] = sb[i] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < WG + pm - 1; ++r) {
+      if (o0 + r < rg) {
+        const float2 c = cs[(o0 + r) * csw + ox];
+#pragma unroll
+        for (int i = 0; i < WG; ++i) {
+          if (r - i >= 0 && r - i < pm) {
+            sa[i] = __fadd_rn(sa[i], c.x);
+            sb[i] = __fadd_rn(sb[i], c.y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < WG; ++i)
+      if (o0 + i < w1) ws[(o0 + i) * csw + ox] = make_float2(sa[i], sb[i]);
+  }
+  __syncthreads();
+
+  if (tid >= w1 * ntx) return;
+  // neighbouring threads take neighbouring output rows (odd pitch: no bank
+  // conflicts), then the next strip of columns
+  const int oy = tid % w1;
+  const int ox0 = (tid / w1) * TW;
+  float num[TW];
+#pragma unroll
+  for (int j = 0; j < TW; ++j) num[j] = 0.0f;
+  // taps whose operands are loaded into registers at once: a whole template
+  // row for the compiled shape (as 16-byte broadcast loads), 4 at a time
+  // under run-time bounds
+  constexpr int KC = PM > 0 ? (PM + 3) / 4 * 4 : 4;
+  // two template rows per loop body: the second row's loads start under the
+  // first row's multiply-adds (with one row per body the compiler waits out
+  // every load; the whole loop unrolled outgrows the instruction cache)
+#pragma unroll 2
+  for (int py = 0; py < pm; ++py) {
+    const float* row = reg + (oy + py) * pitch + ox0;
+    const float4* trow = reinterpret_cast<const float4*>(ph + py * tp);
+    for (int px0 = 0; px0 < pm; px0 += KC) {
+      float t[KC], r[KC + TW - 1];
+#pragma unroll
+      for (int q = 0; q < KC / 4; ++q) {
+        const float4 v = trow[px0 / 4 + q];
+        t[4 * q] = v.x;
+        t[4 * q + 1] = v.y;
+        t[4 * q + 2] = v.z;
+        t[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int k = 0; k < KC + TW - 1; ++k)
+        if (PM == 0 || k < PM + TW - 1) r[k] = row[px0 + k];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (px0 + k < pm) {
+#pragma unroll
+          for (int j = 0; j < TW; ++j) num[j] = fmaf(t[k], r[k + j], num[j]);
+        }
+      }
+    }
+  }
+
+  const float inv_n = 1.0f / n;
+  const float2* wrow = ws + oy * csw + ox0;
+  float* g_out = scores + ((size_t)m * w1 + oy) * w1 + ox0;
+  float sc[TW];
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    const float2 w = wrow[j];             // (wsum, wsq)
+    // wsq and wsum^2/n nearly cancel on a low-texture window; an FMA here
+    // would round that difference otherwise than the plain version does, so
+    // each step is rounded on its own
+    const float wvar = fmaxf(
+        __fsub_rn(w.y, __fmul_rn(__fmul_rn(w.x, w.x), inv_n)), 0.0f);
+    const float den = sqrtf(wvar);
+    sc[j] = den > 0.0f ? num[j] / den : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < TW; ++j)
+    if (ox0 + j < w1) g_out[j] = sc[j];
 }
 
 // ---------------------------------------------------------------------------
@@ -104,7 +340,13 @@ __global__ void ncc_score_map_kernel(const float* __restrict__ regions,
 //
 // Bound on an H100 (M = 576): ~3.0 MB moved (patches 1.02 MB, su and sv
 // 0.67 MB each, output 0.67 MB), ~0.9 us at 3.35 TB/s; ~15 FLOP per sample
-// is negligible. Memory- and launch-bound.
+// is negligible. That bound is below what any launch on the card takes, so
+// the yardstick is the launch floor (empty_kernel below): timed the same
+// way on an H100 80GB HBM3 at 700 W (chip_smoke.py), a launch that does
+// nothing reads 0.0048 ms bare and 0.0049 ms after the output's torch.empty,
+// this kernel 0.0056 ms at M = 32 and 0.0066 ms at M = 576, 1.16 and 1.36
+// times the floor. Staging patches in shared memory could win back at most
+// that 1.7 us; the body stays as simple as it is.
 // ---------------------------------------------------------------------------
 
 __global__ void warp_bilinear_kernel(const float* __restrict__ patches,
@@ -143,19 +385,41 @@ __global__ void warp_bilinear_kernel(const float* __restrict__ patches,
   out[idx] = s;
 }
 
+// ---------------------------------------------------------------------------
+// Launch floor: a kernel that does nothing, launched through the same C
+// interface. Its time, read the way the kernels' times are read, is the
+// least any launch can show on the card; chip_smoke.py prints it beside
+// every kernel's time.
+// ---------------------------------------------------------------------------
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
 
-// regions (m, rg, rg), p_hat (m, pm, pm), out (m, w1, w1); float32,
-// contiguous, rg = w1 + pm - 1.
-int cvms_ncc_score_map_f32(const void* regions, const void* p_hat,
-                           void* out, int m, int pm, int w1, int threads,
+// regions (m, rg, rg), patches (m, pm, pm) -> scores (m, w1, w1) and, unless
+// p_hat is null, p_hat (m, pm, pm); float32, contiguous, rg = w1 + pm - 1.
+// One block per landmark; threads and smem_bytes come from
+// vision.ncc_launch_plan. compiled_shape != 0 takes the <17, 21>
+// instantiation and refuses any other shape; 0 takes the run-time bounds.
+int cvms_ncc_score_map_f32(const void* regions, const void* patches,
+                           void* scores, void* p_hat, int m, int pm, int w1,
+                           int threads, int smem_bytes, int compiled_shape,
                            void* stream) {
-  const int rg = w1 + pm - 1;
-  const size_t shmem = sizeof(float) * ((size_t)rg * rg + pm * pm);
-  ncc_score_map_kernel<<<m, threads, shmem, (cudaStream_t)stream>>>(
-      (const float*)regions, (const float*)p_hat, (float*)out, pm, w1);
+  const unsigned grid = (unsigned)m;
+  const float* r = (const float*)regions;
+  const float* p = (const float*)patches;
+  if (compiled_shape) {
+    if (pm != 17 || w1 != 21) return (int)cudaErrorInvalidValue;
+    ncc_score_map_kernel<17, 21>
+        <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+            r, p, (float*)scores, (float*)p_hat, pm, w1);
+  } else {
+    ncc_score_map_kernel<0, 0>
+        <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
+            r, p, (float*)scores, (float*)p_hat, pm, w1);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -169,6 +433,11 @@ int cvms_warp_bilinear_f32(const void* patches, const void* su,
   warp_bilinear_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)patches, (const float*)su, (const float*)sv, (float*)out,
       m, pi, po);
+  return (int)cudaGetLastError();
+}
+
+int cvms_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 wrappers.
 
 * :func:`ncc_score_map` — zero-mean NCC of each landmark's template against
-  every offset of its search region (replaces
-  ``cv_monoslam_tpu/ops/pallas_vision.py::ncc_score_map``);
+  every offset of its search region, template normalization included
+  (replaces ``cv_monoslam_tpu/ops/pallas_vision.py::ncc_score_map``);
+  :func:`ncc_score_map_with_templates` also returns the normalized
+  templates, so the normalization and the scores can be checked apart;
 * :func:`warp_bilinear` — bilinear resample of each landmark's init patch at
   fractional coordinates (replaces ``pallas_vision.py::warp_bilinear``).
 
@@ -13,12 +15,14 @@ CPU tensors — and only for those — it computes the plain PyTorch version
 (``*_ref``), which is also what the kernels are tested against on the card.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``ncc_score_map.launches``), so a run can show that it went through the
-kernel.
+kernel; ``normalized_templates.calls`` counts the plain normalization the
+same way, so a run can show that the CUDA path never takes it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,8 +31,9 @@ from . import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cvms_ncc_score_map_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "cvms_ncc_score_map_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cvms_warp_bilinear_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cvms_empty_launch": [_P],
 }
 
 
@@ -48,26 +53,59 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _launch(name: str, fn: str, *args) -> None:
-    err = getattr(_lib(), fn)(*args)
+def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
+    """Call entry point ``fn(*args, stream)`` on ``dev``'s current stream.
+
+    The stream handle comes from ``torch._C._cuda_getCurrentRawStream`` (what
+    compiled PyTorch code uses; it builds no ``Stream`` object, which costs
+    the host more than the launch itself), and the device context is entered
+    only when ``dev`` is not the current device."""
+    entry = getattr(_lib(), fn)
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    if idx == cur:
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def empty_launch(dev: torch.device) -> None:
+    """Launch the kernel that does nothing: the card's launch floor, timed
+    by ``chip_smoke.py`` the way the kernels are."""
+    _launch("empty_launch", "cvms_empty_launch", dev)
 
 
 # ---------------------------------------------------------------------------
 # NCC score map
 # ---------------------------------------------------------------------------
 
+NCC_STRIP = 7              # offsets per thread (TW in vision_kernels.cu)
+NCC_COMPILED_SHAPE = (17, 21)   # (pm, w1) instantiated with unrolled loops
+NCC_SMEM_LIMIT = 48 * 1024      # dynamic shared memory without an opt-in
+
 
 def normalized_templates(patches: torch.Tensor) -> torch.Tensor:
-    """Zero-mean, unit-norm templates (M, pm, pm); a flat template -> 0."""
+    """Zero-mean, unit-norm templates (M, pm, pm); a flat template -> 0.
+
+    Centred twice (the mean, then the mean of the result), as the kernel
+    does: sum(p_hat) is then at the roundoff of one value instead of pm^2
+    of them, and its product with a window sum of up to pm^2 * 255 stays
+    far below the score tolerance whatever order the mean was summed in."""
+    normalized_templates.calls += 1
     m = patches.shape[0]
     pflat = patches.reshape(m, -1)
     pc = pflat - pflat.mean(dim=1, keepdim=True)
+    pc = pc - pc.mean(dim=1, keepdim=True)
     pn = torch.sqrt(torch.sum(pc * pc, dim=1, keepdim=True))
     # pc / pn is 0/0 where pn == 0; torch.where drops that branch
     return torch.where(pn > 0, pc / pn, 0.0).reshape(patches.shape)
+
+
+normalized_templates.calls = 0
 
 
 def ncc_score_map_ref(regions: torch.Tensor, patches: torch.Tensor, *,
@@ -106,37 +144,101 @@ def _ncc_core_ref(reg: torch.Tensor, p_hat: torch.Tensor, *, pm: int,
     return torch.where(den > 0.0, num / safe, torch.zeros_like(num))
 
 
-def ncc_score_map(regions: torch.Tensor, patches: torch.Tensor, *, pm: int,
-                  w1: int) -> torch.Tensor:
-    """Zero-mean NCC score maps for all landmarks (see module docstring).
+def ncc_launch_plan(m: int, pm: int, w1: int) -> dict:
+    """How the NCC kernel is launched for M landmarks of shape (pm, w1).
 
-    regions (M, Rg, Rg) with Rg = w1 + pm - 1; patches (M, pm, pm).
-    Returns (M, w1, w1) scores in [-1, 1]."""
+    A block owns one landmark, so the region is staged once; a thread owns
+    a 1 x NCC_STRIP strip of offsets. Returns ``compiled`` (the unrolled
+    (17, 21) instantiation, else the run-time bounds of the same kernel),
+    ``threads`` and ``smem_bytes``. Raises ValueError where the block's
+    shared memory exceeds NCC_SMEM_LIMIT."""
+    if m < 1:
+        raise ValueError(f"ncc_score_map: m={m}")
+    strips = -(-w1 // NCC_STRIP)
+    rg = w1 + pm - 1
+    csw = strips * NCC_STRIP
+    tp = -(-pm // 4) * 4                 # template row, 16-byte loads
+    pitch = (csw + tp - 1) | 1           # region row: odd, no bank conflicts
+    # normalized template, column sums and window sums (two floats each),
+    # region rows, raw template: the layout of ncc_score_map_kernel
+    smem = 4 * (pm * tp + 2 * rg * csw + 2 * w1 * csw + rg * pitch + pm * pm)
+    if smem > NCC_SMEM_LIMIT:
+        raise ValueError(f"ncc_score_map: region {rg}x{rg} needs {smem} B "
+                         f"of shared memory (> {NCC_SMEM_LIMIT} B)")
+    # one thread per column-sum task (region rows x strips), of which
+    # w1 x strips go on to the taps; the shared-memory limit keeps this
+    # below 1024
+    return dict(compiled=(pm, w1) == NCC_COMPILED_SHAPE,
+                threads=-(-(rg * strips) // 32) * 32, smem_bytes=smem)
+
+
+def _ncc_check_shapes(regions, patches, pm: int, w1: int) -> None:
     m, rg, _ = regions.shape
     if rg != w1 + pm - 1 or patches.shape != (m, pm, pm):
         raise ValueError(f"ncc_score_map: shapes {tuple(regions.shape)}, "
                          f"{tuple(patches.shape)} for pm={pm}, w1={w1}")
-    # normalized once, as the JAX wrapper does, and handed to either path
-    p_hat = normalized_templates(patches)
-    if regions.device.type == "cpu":
-        return _ncc_core_ref(regions, p_hat, pm=pm, w1=w1)
-    if regions.device.type != "cuda":
+    if regions.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ncc_score_map: no kernel for {regions.device}")
-    _check_cuda("ncc_score_map", regions, p_hat)
-    smem = 4 * (rg * rg + pm * pm)
-    if smem > 48 * 1024:
-        raise ValueError(f"ncc_score_map: region {rg}x{rg} needs {smem} B "
-                         f"of shared memory (> 48 KB)")
-    out = torch.empty((m, w1, w1), dtype=torch.float32,
-                      device=regions.device)
-    threads = min(1024, -(-(w1 * w1) // 32) * 32)
-    with torch.cuda.device(regions.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("ncc_score_map", "cvms_ncc_score_map_f32",
-                regions.data_ptr(), p_hat.data_ptr(), out.data_ptr(),
-                m, pm, w1, threads, stream)
+
+
+def _ncc_cuda(regions, patches, scores, p_hat, pm: int, w1: int) -> None:
+    """The one kernel launch of the NCC wrappers; ``p_hat`` None: the
+    kernel keeps the normalized templates on chip only."""
+    m = regions.shape[0]
+    plan = ncc_launch_plan(m, pm, w1)
+    outs = (scores,) if p_hat is None else (scores, p_hat)
+    _check_cuda("ncc_score_map", regions, patches, *outs)
+    _launch("ncc_score_map", "cvms_ncc_score_map_f32", regions.device,
+            regions.data_ptr(), patches.data_ptr(), scores.data_ptr(),
+            None if p_hat is None else p_hat.data_ptr(), m, pm, w1,
+            plan["threads"], plan["smem_bytes"], int(plan["compiled"]))
     ncc_score_map.launches += 1
-    return out
+
+
+def ncc_score_map_with_templates(
+        regions: torch.Tensor, patches: torch.Tensor, *, pm: int, w1: int,
+        out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(scores, p_hat)``: the score maps of :func:`ncc_score_map` and the
+    normalized templates (M, pm, pm) they were computed against.
+
+    On CUDA tensors one kernel launch computes both, and no torch
+    arithmetic runs before it; ``out`` gives preallocated float32 outputs.
+    On CPU tensors this is exactly ``(ncc_score_map_ref(...),
+    normalized_templates(...))``."""
+    _ncc_check_shapes(regions, patches, pm, w1)
+    m = regions.shape[0]
+    if regions.device.type == "cpu":
+        p_hat = normalized_templates(patches)
+        return _ncc_core_ref(regions, p_hat, pm=pm, w1=w1), p_hat
+    if out is None:
+        out = (torch.empty((m, w1, w1), dtype=torch.float32,
+                           device=regions.device),
+               torch.empty((m, pm, pm), dtype=torch.float32,
+                           device=regions.device))
+    scores, p_hat = out
+    if scores.shape != (m, w1, w1) or p_hat.shape != (m, pm, pm):
+        raise ValueError(f"ncc_score_map: output shapes "
+                         f"{tuple(scores.shape)}, {tuple(p_hat.shape)}")
+    _ncc_cuda(regions, patches, scores, p_hat, pm, w1)
+    return scores, p_hat
+
+
+def ncc_score_map(regions: torch.Tensor, patches: torch.Tensor, *, pm: int,
+                  w1: int) -> torch.Tensor:
+    """Zero-mean NCC score maps for all landmarks (see module docstring).
+
+    regions (M, Rg, Rg) with Rg = w1 + pm - 1; patches (M, pm, pm) raw
+    templates. Returns (M, w1, w1) scores in [-1, 1]. On CUDA tensors: one
+    output allocation and one kernel launch, which normalizes the
+    templates on chip."""
+    _ncc_check_shapes(regions, patches, pm, w1)
+    if regions.device.type == "cpu":
+        return ncc_score_map_ref(regions, patches, pm=pm, w1=w1)
+    scores = torch.empty((regions.shape[0], w1, w1), dtype=torch.float32,
+                         device=regions.device)
+    _ncc_cuda(regions, patches, scores, None, pm, w1)
+    return scores
 
 
 ncc_score_map.launches = 0
@@ -188,11 +290,9 @@ def warp_bilinear(patches: torch.Tensor, su: torch.Tensor,
     _check_cuda("warp_bilinear", patches, su, sv)
     po = su.shape[-1]
     out = torch.empty(su.shape, dtype=torch.float32, device=patches.device)
-    with torch.cuda.device(patches.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("warp_bilinear", "cvms_warp_bilinear_f32",
-                patches.data_ptr(), su.data_ptr(), sv.data_ptr(),
-                out.data_ptr(), m, pi, po, stream)
+    _launch("warp_bilinear", "cvms_warp_bilinear_f32", patches.device,
+            patches.data_ptr(), su.data_ptr(), sv.data_ptr(),
+            out.data_ptr(), m, pi, po)
     warp_bilinear.launches += 1
     return out
 

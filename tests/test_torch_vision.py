@@ -69,6 +69,103 @@ def test_ncc_plain_matches_pallas_interpret_m37():
     assert float(got[1].abs().max()) < 5e-3          # flat window (roundoff)
 
 
+@pytest.mark.parametrize("m", [32, 130])
+def test_ncc_plain_matches_pallas_interpret(m):
+    """M = 32 (config 1) and M = 130, which crosses the Pallas wrapper's
+    128-lane block into a second, padded one."""
+    regions, patches = _ncc_inputs(m, 10 + m)
+    got = vision.ncc_score_map_ref(torch.as_tensor(regions),
+                                   torch.as_tensor(patches), pm=PM, w1=W1)
+    want = np.asarray(ncc_score_map(jnp.asarray(regions),
+                                    jnp.asarray(patches), pm=PM, w1=W1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    assert float(got[0, 3, 4]) > 0.999
+    assert float(got[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["uint8", "low_texture", "uniform"])
+def test_normalized_templates_match_jax_wrapper_arithmetic(kind):
+    """The plain normalization against the arithmetic of the JAX wrapper
+    (pallas_vision.py: mean, centre, norm, guarded divide) in numpy
+    float32, 1e-6 absolute; the second centring leaves |sum(p_hat)| per
+    template at float32 roundoff (<= 1e-5)."""
+    rng = np.random.default_rng(20)
+    if kind == "uint8":
+        patches = rng.integers(0, 256, (40, PM, PM)).astype(np.float32)
+    elif kind == "low_texture":
+        patches = (100 + rng.integers(-2, 3, (40, PM, PM))).astype(np.float32)
+    else:
+        patches = rng.uniform(0, 255, (40, PM, PM)).astype(np.float32)
+    patches[3] = 42.0                                 # flat template
+    pflat = patches.reshape(40, PM * PM)
+    pc = pflat - pflat.mean(axis=1, keepdims=True, dtype=np.float32)
+    pn = np.sqrt((pc * pc).sum(axis=1, keepdims=True, dtype=np.float32))
+    want = np.where(pn > 0, pc / np.where(pn == 0, 1.0, pn), 0.0)
+    got = vision.normalized_templates(torch.as_tensor(patches)).numpy()
+    np.testing.assert_allclose(got.reshape(40, -1), want, rtol=0, atol=1e-6)
+    assert np.abs(got.reshape(40, -1).sum(axis=1, dtype=np.float64)).max() \
+        <= 1e-5
+    assert np.abs(got[3]).max() == 0.0
+    norms = np.sqrt((got.astype(np.float64) ** 2).sum(axis=(1, 2)))
+    np.testing.assert_allclose(np.delete(norms, 3), 1.0, rtol=0, atol=1e-6)
+
+
+def test_ncc_with_templates_on_cpu_is_plain_pair_and_launches_nothing():
+    regions, patches = _ncc_inputs(6, 5)
+    r, p = torch.as_tensor(regions), torch.as_tensor(patches)
+    before = vision.ncc_score_map.launches
+    scores, p_hat = vision.ncc_score_map_with_templates(r, p, pm=PM, w1=W1)
+    assert vision.ncc_score_map.launches == before
+    torch.testing.assert_close(
+        scores, vision.ncc_score_map_ref(r, p, pm=PM, w1=W1), rtol=0, atol=0)
+    torch.testing.assert_close(p_hat, vision.normalized_templates(p),
+                               rtol=0, atol=0)
+    assert p_hat.shape == (6, PM, PM) and scores.shape == (6, W1, W1)
+    with pytest.raises(ValueError):
+        vision.ncc_score_map_with_templates(r, p[:, :-1], pm=PM, w1=W1)
+
+
+@pytest.mark.parametrize("m,pm,w1,want", [
+    # every configuration's shape: 37 region rows x 3 strips = 111
+    # column-sum tasks -> four warps
+    (32, 17, 21, dict(compiled=True, threads=128)),
+    (576, 17, 21, dict(compiled=True, threads=128)),
+    # any other shape: run-time bounds of the same kernel
+    (37, 9, 13, dict(compiled=False, threads=64)),
+    (37, 17, 13, dict(compiled=False, threads=64)),
+    (37, 9, 21, dict(compiled=False, threads=96)),
+    (4, 3, 5, dict(compiled=False, threads=32)),
+])
+def test_ncc_launch_plan(m, pm, w1, want):
+    plan = vision.ncc_launch_plan(m, pm, w1)
+    assert plan == dict(want, smem_bytes=plan["smem_bytes"])
+    # the layout of vision_kernels.cu: normalized template with rows padded
+    # to 16 bytes, float2 column sums and window sums, odd-pitch region
+    # rows, raw template
+    strips = -(-w1 // vision.NCC_STRIP)
+    rg = w1 + pm - 1
+    csw = strips * vision.NCC_STRIP
+    tp = -(-pm // 4) * 4
+    pitch = (csw + tp - 1) | 1
+    assert pitch % 2 == 1 and pitch >= rg
+    assert plan["smem_bytes"] == 4 * (pm * tp + 2 * rg * csw + 2 * w1 * csw
+                                      + rg * pitch + pm * pm)
+    assert (pm * tp) % 4 == 0                         # float2 arrays aligned
+    assert plan["threads"] % 32 == 0
+    assert plan["threads"] >= rg * strips >= w1 * strips
+
+
+def test_ncc_launch_plan_limits():
+    with pytest.raises(ValueError):                   # > 48 KB shared memory
+        vision.ncc_launch_plan(576, 41, 61)
+    with pytest.raises(ValueError):
+        vision.ncc_launch_plan(0, 17, 21)
+    # the widest search that fits stays within 1024 threads per block
+    wide = vision.ncc_launch_plan(576, 3, 41)
+    assert wide["threads"] <= 1024
+    assert wide["smem_bytes"] <= vision.NCC_SMEM_LIMIT
+
+
 def test_ncc_plain_matches_direct_oracle_f64():
     regions, patches = _ncc_inputs(4, 1)
     f64 = torch.float64
