@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke (one card)
     python3 chip_smoke.py --profile  # the smoke, then a profiled chunk
+    python3 chip_smoke.py --profile --config 3   # ... of config 3
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
@@ -29,17 +30,36 @@ non-zero and prints no result):
    once per tracked frame, and the plain template normalization never
    called), the repair counters, ATE and matches, and holds both kernels
    against their plain versions on frames captured from the run;
-5. one ``{"kernels": [...]}`` line, and as the last line
+5. config 3 at full width: ``sigma_mode="implicit"`` at M = 576 landmarks
+   (state dimension 3460) on the frozen ``bench3_grid`` fixture, float32,
+   host-gated detection, two warm-up chunks of 8 and 64 timed frames in
+   chunks of 8 (the configuration ``bench.py`` calls config 3). Checks: 64
+   frames, finite poses, peak matched >= 500, ATE < 0.03 m, no more
+   escalated repairs or skipped updates than the JAX engine shows on the
+   same frames in float32 on a CPU (``CONFIG3_JAX_CPU``), each kernel
+   launched once per frame at M = 576, no plain template normalization,
+   and both kernels against their plain versions on three captured frames;
+6. the redirect branch: config 1 on the first 48 frames of ``bench1_arc``
+   with a redirection forced at frame 24; map size, loop re-adds and stored
+   records left on that frame must equal the JAX engine's
+   (``REDIRECT_JAX_CPU``), and tracking must go on;
+7. checkpoint on the card: a config-3 session is saved after three chunks,
+   resumed on ``cuda``, and one more chunk from each must leave the two
+   states equal bit for bit;
+8. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Tuple
 
@@ -55,6 +75,21 @@ PEAK_FP32 = 67e12      # H100 SXM FP32 outside the tensor cores, FLOP/s
 SM_CLOCK_HZ = 1.98e9   # H100 SXM boost clock: converts a sleep to cycles
 PM, W1, PI = 17, 21, 21   # match patch, NCC offsets, init patch (defaults)
 RG = W1 + PM - 1
+
+#: config 3 of ``bench.py`` (``bench_large`` -> ``scripts/bench_large.py``)
+CONFIG3 = dict(max_landmarks=576, max_new_per_frame=64, max_detections=768,
+               update_mode="gram", qr_mode="gram", sigma_mode="implicit",
+               gate_detection=False, min_dist=10.0, min_num=480,
+               n_initial_raws=768, n_process_raws=768, min_step_xy=0.005)
+CONFIG1 = dict(max_landmarks=32, max_new_per_frame=8, max_detections=48)
+#: the JAX engine on the same 16 + 64 frames, float32 on a CPU
+#: (``PYTHONPATH=. python tests/test_torch_implicit.py``)
+CONFIG3_JAX_CPU = dict(escalations=0, skipped=0, repairs=59, peak_map=576,
+                       peak_matched=515)
+#: the JAX engine on the redirect phase's 48 frames, float32 and float64 on
+#: a CPU alike (``PYTHONPATH=. python tests/test_torch_redirect.py``): map
+#: size after the branch, landmarks back with is_loop, stored records left
+REDIRECT_JAX_CPU = dict(n_map=5, n_loop=5, stored_valid=4)
 
 
 def log(*a):
@@ -352,54 +387,108 @@ def phase_kernel_times(dev) -> dict:
     return out
 
 
-def phase_slice(dev, errs: dict) -> dict:
-    from cv_monoslam_tpu_torch import SlamConfig
-    from cv_monoslam_tpu_torch.api import SlamSession
+@contextlib.contextmanager
+def captured_kernel_inputs(n: int = 3):
+    """While active, the matcher's calls of both kernels keep a copy of
+    their first ``n`` argument sets (the real regions, templates and warp
+    coordinates of the run)."""
     from cv_monoslam_tpu_torch.frontend import matching
-    from cv_monoslam_tpu_torch.io import fixtures
-    from cv_monoslam_tpu_torch.ops import vision
 
-    chunk = 32
-    seq, track, gt_xy, _ = fixtures.load("bench1_arc")
-    cfg = SlamConfig(max_landmarks=32, max_new_per_frame=8,
-                     max_detections=48)
-
-    # capture the kernels' real inputs on the first frames of the run
     captured = {"ncc": [], "warp": []}
     real_ncc, real_warp = matching.ncc_score_map, matching.warp_bilinear
 
     def cap_ncc(regions, patches, **kw):
-        if len(captured["ncc"]) < 3:
+        if len(captured["ncc"]) < n:
             captured["ncc"].append((regions.clone(), patches.clone()))
         return real_ncc(regions, patches, **kw)
 
     def cap_warp(patches, su, sv):
-        if len(captured["warp"]) < 3:
+        if len(captured["warp"]) < n:
             captured["warp"].append((patches.clone(), su.clone(),
                                      sv.clone()))
         return real_warp(patches, su, sv)
 
+    matching.ncc_score_map, matching.warp_bilinear = cap_ncc, cap_warp
+    try:
+        yield captured
+    finally:
+        matching.ncc_score_map, matching.warp_bilinear = real_ncc, real_warp
+
+
+def check_captured(captured: dict, errs: dict, label: str, m: int) -> None:
+    """Kernel vs plain on captured frames (launches not counted for the
+    run that captured them: call this after reading the counters)."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    if len(captured["ncc"]) < 3 or len(captured["warp"]) < 3:
+        raise AssertionError(f"no frames captured {label}")
+    for regions, patches in captured["ncc"]:
+        if regions.shape[0] != m:
+            raise AssertionError(f"ncc ran at M={regions.shape[0]} {label}")
+        check_ncc(regions, patches, label, errs)
+    for patches, su, sv in captured["warp"]:
+        if patches.shape[0] != m:
+            raise AssertionError(f"warp ran at M={patches.shape[0]} {label}")
+        e = float((vision.warp_bilinear(patches, su, sv)
+                   - vision.warp_bilinear_ref(patches, su, sv))
+                  .abs().max())
+        errs["warp_bilinear"] = max(errs["warp_bilinear"], e)
+        log(f"[check] warp {label}: max|kernel-plain|={e:.3e}")
+        if not e <= TOL:
+            raise AssertionError(f"warp kernel disagrees {label}")
+
+
+def reset_counters() -> None:
+    from cv_monoslam_tpu_torch.ops import vision
+
     vision.ncc_score_map.launches = 0
     vision.warp_bilinear.launches = 0
     vision.normalized_templates.calls = 0
-    matching.ncc_score_map, matching.warp_bilinear = cap_ncc, cap_warp
-    try:
+
+
+def read_counters() -> dict:
+    from cv_monoslam_tpu_torch.ops import vision
+
+    return {"ncc_score_map": vision.ncc_score_map.launches,
+            "warp_bilinear": vision.warp_bilinear.launches,
+            "plain_normalizations": vision.normalized_templates.calls}
+
+
+def launch_problems(counts: dict, expected: int, what: str) -> list:
+    problems = [f"{name} launched {counts[name]} times for {expected} "
+                f"tracked frames of {what}"
+                for name in ("ncc_score_map", "warp_bilinear")
+                if counts[name] != expected]
+    if counts["plain_normalizations"]:
+        problems.append(f"the plain template normalization ran "
+                        f"{counts['plain_normalizations']} times on the "
+                        f"CUDA path of {what}")
+    return problems
+
+
+def phase_slice(dev, errs: dict) -> dict:
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    chunk = 32
+    seq, track, gt_xy, _ = fixtures.load("bench1_arc")
+    cfg = SlamConfig(**CONFIG1)
+
+    reset_counters()
+    with captured_kernel_inputs() as captured:
         sess = SlamSession(cfg, seq, track, device=dev)
         sess.step_chunk(chunk)                    # warm-up chunk
-    finally:
-        matching.ncc_score_map, matching.warp_bilinear = real_ncc, real_warp
     torch.cuda.synchronize()
-    warm = (vision.ncc_score_map.launches, vision.warp_bilinear.launches)
+    warm = read_counters()
     t0 = time.perf_counter()
     n0 = len(sess.records)
     sess.run(chunk=chunk)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"ncc_score_map": vision.ncc_score_map.launches,
-                "warp_bilinear": vision.warp_bilinear.launches}
-    timed_launches = {"ncc_score_map": launches["ncc_score_map"] - warm[0],
-                      "warp_bilinear": launches["warp_bilinear"] - warm[1]}
-    plain_normalizations = vision.normalized_templates.calls
+    counts = read_counters()
+    launches = {k: counts[k] for k in ("ncc_score_map", "warp_bilinear")}
+    timed_launches = {k: launches[k] - warm[k] for k in launches}
 
     recs = sess.records
     n_timed = len(recs) - n0
@@ -416,34 +505,18 @@ def phase_slice(dev, errs: dict) -> dict:
                repairs=recs[-1].n_repairs, escalations=recs[-1].n_escalations,
                skipped=recs[-1].n_skipped, launches=launches,
                timed_launches=timed_launches,
-               plain_normalizations=plain_normalizations)
+               plain_normalizations=counts["plain_normalizations"])
     log("[slice] " + json.dumps(res))
 
-    # kernel vs plain on the captured real frames (not counted above)
-    for regions, patches in captured["ncc"]:
-        check_ncc(regions, patches, "on a fixture frame", errs)
-    for patches, su, sv in captured["warp"]:
-        e = float((vision.warp_bilinear(patches, su, sv)
-                   - vision.warp_bilinear_ref(patches, su, sv))
-                  .abs().max())
-        errs["warp_bilinear"] = max(errs["warp_bilinear"], e)
-        log(f"[check] warp on a fixture frame: max|kernel-plain|={e:.3e}")
-        if not e <= TOL:
-            raise AssertionError("warp kernel disagrees on a fixture frame")
-    if len(captured["ncc"]) < 3 or len(captured["warp"]) < 3:
-        raise AssertionError("no fixture frames captured")
+    check_captured(captured, errs, "on a fixture frame", cfg.max_landmarks)
 
-    problems = []
+    problems = launch_problems(counts, len(recs), "config 1")
     if not np.all(np.isfinite(traj)):
         problems.append("non-finite poses")
-    for name, n in launches.items():
-        if n != len(recs) or timed_launches[name] != n_timed:
-            problems.append(f"{name} launched {n} times for {len(recs)} "
-                            f"tracked frames ({timed_launches[name]} for "
-                            f"the {n_timed} timed ones)")
-    if plain_normalizations:
-        problems.append(f"the plain template normalization ran "
-                        f"{plain_normalizations} times on the CUDA path")
+    for name, n in timed_launches.items():
+        if n != n_timed:
+            problems.append(f"{name} launched {n} times in the {n_timed} "
+                            f"timed frames")
     if res["escalations"] or res["skipped"]:
         problems.append("escalated repairs or skipped updates")
     if not ate < 0.03:
@@ -455,22 +528,255 @@ def phase_slice(dev, errs: dict) -> dict:
     return res
 
 
-def phase_profile(dev, chunk: int = 32) -> None:
-    """Where a chunk's time goes: ``torch.profiler`` over one chunk of the
-    config-1 slice after a warm-up chunk. Prints wall ms per frame, the
-    device's busy share (union of device-side intervals over the wall time)
-    and the device time per kernel name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def config3_session(dev, chunk: int = 8):
+    """A config-3 session warmed up as ``bench.py`` warms it: a detect chunk,
+    then a chunk with the gate forced shut (so both variants have run), then
+    the gate opened to the telemetry and set to the one-chunk-stale
+    cadence."""
     from cv_monoslam_tpu_torch import SlamConfig
     from cv_monoslam_tpu_torch.api import SlamSession
     from cv_monoslam_tpu_torch.io import fixtures
 
-    seq, track, _, _ = fixtures.load("bench1_arc")
-    sess = SlamSession(SlamConfig(max_landmarks=32, max_new_per_frame=8,
-                                  max_detections=48), seq, track, device=dev)
+    seq, track, gt_xy, _ = fixtures.load("bench3_grid", min_step_xy=0.005)
+    cfg = SlamConfig(**CONFIG3)
+    sess = SlamSession(cfg, seq, track, device=dev)
+    sess.detect_host_gate = True
     sess.step_chunk(chunk)
+    sess._last_matched = cfg.min_num
+    sess.step_chunk(chunk)
+    sess._last_matched = sess.records[-1].n_matched
+    sess.detect_gate_margin = 0
+    return sess, gt_xy
+
+
+def phase_config3(dev, errs: dict) -> dict:
+    chunk, n_timed = 8, 64
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t_setup = time.perf_counter()
+    sess, gt_xy = config3_session(dev, chunk)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_setup
+    n0 = len(sess.records)
+    with captured_kernel_inputs() as captured:
+        t0 = time.perf_counter()
+        sess.run(n_frames=n_timed, chunk=chunk, drop_tail=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = read_counters()
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    recs = sess.records
+    done = len(recs) - n0
+    traj = sess.trajectory
+    res = dict(
+        landmarks=sess.cfg.max_landmarks, state_dim=sess.cfg.state_dim,
+        frames=done, fps=done / dt, ms_per_frame=dt / max(done, 1) * 1e3,
+        setup_s=setup_s, ate_m=sess.ate(gt_xy),
+        peak_map=max(r.n_map for r in recs),
+        peak_matched=max(r.n_matched for r in recs),
+        repairs=recs[-1].n_repairs, escalations=recs[-1].n_escalations,
+        skipped=recs[-1].n_skipped,
+        max_memory_allocated=peak_bytes,
+        chunks_with_detection=sum(sess.chunk_detect),
+        chunks_without_detection=len(sess.chunk_detect)
+        - sum(sess.chunk_detect),
+        chunk_detect=sess.chunk_detect,
+        stored_inserts=int(sess.state.stored.seq),
+        launches={k: counts[k] for k in ("ncc_score_map", "warp_bilinear")},
+        plain_normalizations=counts["plain_normalizations"],
+        n_matched=[r.n_matched for r in recs],
+        jax_cpu_float32=CONFIG3_JAX_CPU)
+    log("[config3] " + json.dumps(res))
+    log(f"[config3] M=576 D=3460 bench3_grid float32: {res['fps']:.2f} "
+        f"frames/s, {res['ms_per_frame']:.2f} ms/frame over {done} frames; "
+        f"peak map {res['peak_map']}, peak matched {res['peak_matched']}; "
+        f"ATE {res['ate_m']:.5f} m; repairs {res['repairs']} minor / "
+        f"{res['escalations']} escalated / {res['skipped']} skipped; "
+        f"max_memory_allocated {peak_bytes / 2**20:.0f} MiB; chunks with / "
+        f"without detection {res['chunks_with_detection']} / "
+        f"{res['chunks_without_detection']}")
+
+    check_captured(captured, errs, "on a config-3 frame",
+                   sess.cfg.max_landmarks)
+
+    problems = launch_problems(counts, len(recs), "config 3")
+    if done != n_timed:
+        problems.append(f"{done} timed frames, wanted {n_timed}")
+    if not np.all(np.isfinite(traj)):
+        problems.append("non-finite poses")
+    if not res["peak_matched"] >= 500:
+        problems.append(f"peak matched {res['peak_matched']} < 500")
+    if not res["ate_m"] < 0.03:
+        problems.append(f"ATE {res['ate_m']} >= 0.03 m")
+    for key in ("escalations", "skipped"):
+        if res[key] > CONFIG3_JAX_CPU[key]:
+            problems.append(f"{key} {res[key]} > the JAX engine's "
+                            f"{CONFIG3_JAX_CPU[key]}")
+    if problems:
+        raise AssertionError("config-3 checks failed: " + "; ".join(problems))
+    return res
+
+
+def phase_redirect(dev) -> dict:
+    """Config 1 on the first 48 frames of bench1_arc with a redirection
+    forced at frame 24 (no committed fixture holds one)."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    at, n_frames = 24, 48
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    track.redirect[at] = True
+    reset_counters()
+    sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
+    sess.run(n_frames=at - 1, chunk=8)
+    rec = sess.step()
+    got = dict(n_map=rec.n_map, n_loop=int(sess.state.lm.is_loop.sum()),
+               stored_valid=int(sess.state.stored.valid.sum()))
+    sess.run(n_frames=n_frames - at, chunk=8)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    recs = sess.records
+    after = [r.n_matched for r in recs[at:]]
+    res = dict(frames=len(recs), redirect_frame=rec.frame,
+               redirected=[r.frame for r in recs if r.redirected],
+               matched_mean_after=float(np.mean(after)), **got,
+               expected=REDIRECT_JAX_CPU,
+               launches={k: counts[k] for k in ("ncc_score_map",
+                                                "warp_bilinear")})
+    log("[redirect] " + json.dumps(res))
+    # the redirect frame itself tracks nothing: no kernel runs on it
+    problems = launch_problems(counts, n_frames - 1, "the redirect run")
+    if len(recs) != n_frames or res["redirected"] != [at]:
+        problems.append(f"redirected frames {res['redirected']} of "
+                        f"{len(recs)}, wanted [{at}] of {n_frames}")
+    for key, want in REDIRECT_JAX_CPU.items():
+        if got[key] != want:
+            problems.append(f"{key} {got[key]} on the card, {want} from the "
+                            f"JAX engine on a CPU")
+    if not res["matched_mean_after"] >= 4:
+        problems.append(f"mean matches after the redirect "
+                        f"{res['matched_mean_after']} < 4")
+    if not np.all(np.isfinite(sess.trajectory)):
+        problems.append("non-finite poses")
+    if problems:
+        raise AssertionError("redirect checks failed: " + "; ".join(problems))
+    return res
+
+
+def phase_checkpoint(dev) -> dict:
+    """Save a config-3 session after three chunks, resume it on the card,
+    run one more chunk from each: the states must be equal bit for bit."""
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+    from cv_monoslam_tpu_torch.utils.checkpoint import save_checkpoint
+
+    chunk = 8
+    a, _ = config3_session(dev, chunk)
+    a.step_chunk(chunk)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"ckpt_{a.counter:06d}.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, a.state, a.counter, a.cfg)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        b = SlamSession.resume(path, a.images, a.track, device=dev)
+        resume_s = time.perf_counter() - t0
+    if b.state.S.device != a.state.S.device or b.counter != a.counter:
+        raise AssertionError("resume: wrong device or counter")
+    b.detect_host_gate = a.detect_host_gate
+    b.detect_gate_margin = a.detect_gate_margin
+    b._last_matched = a._last_matched
+    a.step_chunk(chunk)
+    b.step_chunk(chunk)
+    sa, sb = state_to_arrays(a.state), state_to_arrays(b.state)
+    unequal = [k for k in sa
+               if not np.array_equal(sa[k], sb[k], equal_nan=True)]
+    res = dict(counter=b.counter, file_mib=size / 2**20, save_s=save_s,
+               resume_s=resume_s, leaves=len(sa), unequal=unequal,
+               n_map=a.records[-1].n_map, n_matched=a.records[-1].n_matched)
+    log("[checkpoint] " + json.dumps(res))
+    if unequal or a.records[-1].pose.tolist() != b.records[-1].pose.tolist():
+        raise AssertionError(f"resumed state differs in {unequal}")
+    return res
+
+
+def phase_profile(dev, config: int) -> None:
+    """Where a chunk's time goes: ``torch.profiler`` over one chunk after
+    the warm-up (config 1: one 32-frame chunk of the slice; config 3: after
+    the two warm-up chunks one 8-frame chunk with the detection gate forced
+    shut, then one with it forced open). Prints wall ms per frame, the device's busy
+    share (union of device-side intervals over the wall time), the host's
+    synchronizing calls per frame and the device time per kernel name."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    if config == 1:
+        chunk = 32
+        seq, track, _, _ = fixtures.load("bench1_arc")
+        sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
+        sess.step_chunk(chunk)
+        profile_chunk(sess, chunk, "config 1")
+    else:
+        chunk = 8
+        sess, _ = config3_session(dev, chunk)
+        sess._last_matched = sess.cfg.min_num     # a tracking chunk
+        profile_chunk(sess, chunk, "config 3")
+        sess._last_matched = 0                    # a detect chunk
+        profile_chunk(sess, chunk, "config 3")
+        sess._last_matched = sess.cfg.min_num
+        sync_census(sess, chunk, "config 3")
+        sess._last_matched = 0
+        sync_census(sess, chunk, "config 3")
+
+
+def sync_census(sess, chunk: int, label: str) -> None:
+    """Which source lines make the host wait for the device, per frame: one
+    chunk under ``torch.cuda.set_sync_debug_mode("warn")``, the warnings
+    counted by the port's line that issued the call."""
+    import collections
+    import traceback
+    import warnings
+
+    where = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()
+                if "cv_monoslam_tpu_torch" in f.filename]
+        f = mine[-1] if mine else None
+        where[f"{os.path.relpath(f.filename)}:{f.lineno} ({f.name})"
+              if f else f"{filename}:{lineno}"] += 1
+
+    real = warnings.showwarning
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            n = len(sess.step_chunk(chunk))
+    finally:
+        warnings.showwarning = real
+        torch.cuda.set_sync_debug_mode("default")
+    tag = f"[syncs] {label}, detect={sess.chunk_detect[-1]}"
+    log(f"{tag}: {sum(where.values()) / n:.1f} synchronizing calls/frame "
+        f"over {n} frames")
+    for src, cnt in where.most_common(20):
+        log(f"{tag}   {cnt / n:6.2f}/frame  {src}")
+
+
+def profile_chunk(sess, chunk: int, label: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_calls = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                  "cudaEventSynchronize")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -478,9 +784,10 @@ def phase_profile(dev, chunk: int = 32) -> None:
         n = len(sess.step_chunk(chunk))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, by_name, syncs = [], {}, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            syncs += e.name in sync_calls
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
@@ -492,13 +799,14 @@ def phase_profile(dev, chunk: int = 32) -> None:
         if b > end:
             busy += b - max(a, end)
             end = b
-    log(f"[profile] {n} frames: {wall_us / n / 1e3:.3f} ms/frame wall, "
+    tag = f"[profile] {label}, detect={sess.chunk_detect[-1]}"
+    log(f"{tag}: {n} frames: {wall_us / n / 1e3:.3f} ms/frame wall, "
         f"{busy / n / 1e3:.3f} ms/frame device-busy "
         f"({100.0 * busy / wall_us:.1f}% busy), {len(spans) / n:.1f} device "
-        f"ops/frame")
+        f"ops/frame, {syncs / n:.1f} synchronizing host calls/frame")
     for name, (cnt, us) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:15]:
-        log(f"[profile]   {us / n:9.1f} us/frame  {cnt / n:6.1f}/frame  "
+        log(f"{tag}   {us / n:9.1f} us/frame  {cnt / n:6.1f}/frame  "
             f"{name[:90]}")
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
@@ -507,7 +815,9 @@ def phase_profile(dev, chunk: int = 32) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="after the smoke, profile one chunk of the slice")
+                    help="after the smoke, profile a chunk")
+    ap.add_argument("--config", type=int, choices=(1, 3), default=1,
+                    help="the configuration --profile looks at")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -525,8 +835,11 @@ def main() -> int:
     errs = phase_kernel_checks(dev)
     times = phase_kernel_times(dev)
     sl = phase_slice(dev, errs)
+    c3 = phase_config3(dev, errs)
+    rd = phase_redirect(dev)
+    phase_checkpoint(dev)
     if args.profile:
-        phase_profile(dev)
+        phase_profile(dev, args.config)
 
     meta = {
         "ncc_score_map": dict(
@@ -540,7 +853,10 @@ def main() -> int:
     for name, mt in meta.items():
         t32, t576 = times[name][32], times[name][576]
         k = dict(name=name, route="cuda", **mt,
-                 launches=sl["launches"][name], max_abs_err=errs[name],
+                 launches=sl["launches"][name],
+                 launches_config3=c3["launches"][name],
+                 launches_redirect=rd["launches"][name],
+                 max_abs_err=errs[name],
                  ms=t32["ms"], plain_ms=t32["plain_ms"],
                  bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
                  library_ms=None,
@@ -563,6 +879,9 @@ def main() -> int:
     log(f"[slice] config 1, bench1_arc, float32: {sl['fps']:.2f} frames/s "
         f"over {sl['timed_frames']} frames; ATE {sl['ate_m']:.5f} m "
         f"(64 frames: {sl['ate64_m']:.5f} m)")
+    log(f"[config3] M=576 D=3460, bench3_grid, float32: {c3['fps']:.2f} "
+        f"frames/s over {c3['frames']} frames; ATE {c3['ate_m']:.5f} m; peak "
+        f"matched {c3['peak_matched']}")
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,14 +15,20 @@ normal frame reads the device four times: the motion-predict Cholesky's
 repair test, the joint-update Cholesky's repair test, update_features'
 store/delete flags, and the detect-when-starved trigger. A detect frame
 adds one (the integration Cholesky), every extra jitter rung one more, and
-a frame that stores records one per record. Removing them (CUDA graphs
+a frame that stores records one per record. Under ``sigma_mode="implicit"``
+the motion predict factorizes nothing (its sync goes), and with
+``cfg.gate_detection`` off the detect trigger is a mask on the device (its
+sync goes too; ``detect_host_gate`` decides per chunk from telemetry the
+host already holds). Removing them (CUDA graphs
 with device-side gates) is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -33,6 +39,8 @@ from .filter.srukf import initialize, slam_step
 from .filter.state import (FilterState, init_state, resolve_device,
                            torch_dtype)
 from .io.dataset import ImageSequence, OdometryTrack
+from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.watchdog import Watchdog
 
 # Telemetry packing: the per-frame outputs of slam_step are merged into ONE
 # flat f32 row on the device, so a chunk pays one device->host transfer.
@@ -94,8 +102,8 @@ class FrameRecord:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: checkpoint, "
-        f"watchdog recovery and the backend)")
+        f"{what} is not ported yet (ROADMAP.md, Queue 1: the recorder and "
+        f"the backend)")
 
 
 class SlamSession:
@@ -108,14 +116,11 @@ class SlamSession:
     def __init__(self, cfg: SlamConfig, images: ImageSequence,
                  track: OdometryTrack, max_stored: int = 64,
                  recorder=None, checkpoint_dir: Optional[str] = None,
-                 checkpoint_every: int = 50, watchdog=None, backend=None,
+                 checkpoint_every: int = 50,
+                 watchdog: Optional[Watchdog] = None, backend=None,
                  device=None):
         if recorder is not None:
             raise _not_ported("the run recorder")
-        if checkpoint_dir is not None:
-            raise _not_ported("checkpointing")
-        if watchdog is not None:
-            raise _not_ported("watchdog recovery")
         if backend is not None:
             raise _not_ported("the BA / pose-graph backend")
         self.device = resolve_device(device)
@@ -124,6 +129,31 @@ class SlamSession:
         self.track = track
         self.counter = 1                      # m_frame.counter semantics
         self.records: List[FrameRecord] = []
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.watchdog = watchdog
+        #: chunk-level detect-when-starved gating: a chunk runs the
+        #: detection pipeline only when the latest match count seen is
+        #: below ``min_num`` (the reference's trigger, SLAM.cpp:552-562,
+        #: decided once per chunk). Off by default: single steps and
+        #: ``cfg.gate_detection`` keep exact per-frame semantics;
+        #: large-state configs enable it.
+        self.detect_host_gate = False
+        #: ``None``: each chunk's gate reads the match count at the end of
+        #: the chunk before it. An int margin M selects the pipelined
+        #: cadence of :meth:`run`: the gate of a chunk reads the count at
+        #: the end of the chunk before the previous one (one chunk stale),
+        #: and detection triggers at matched < min_num + M to absorb the
+        #: staleness. M = 0 accepts the stale gate with no cushion: sound
+        #: only when the config hovers far above true starvation, never at
+        #: the reference-default min_num = 5 (run() warns).
+        self.detect_gate_margin: Optional[int] = None
+        self._last_matched = 0            # latest n_matched seen
+        #: match count of a finished chunk that the pipelined cadence has
+        #: not let the gate see yet
+        self._deferred_matched: Optional[int] = None
+        #: the detect flag of every chunk run so far
+        self.chunk_detect: List[bool] = []
         self._dtype = torch_dtype(cfg.dtype)
         #: transport images as uint8 when lossless; decided from the first
         #: frame
@@ -165,6 +195,38 @@ class SlamSession:
         self.records.append(rec)
         return rec
 
+    def _post_frame(self, rec: FrameRecord, tele: dict) -> None:
+        """Health checks and periodic checkpoints; single steps and chunks
+        both route every frame through here. A recovery after a chunk acts
+        on the state at the chunk's end."""
+        if (self.watchdog is not None
+                and self.watchdog.should_check(rec.frame)):
+            report = self.watchdog.check_flags(tele["health"])
+            if not report.ok:
+                self.state = self.watchdog.recover(
+                    self.state, float(self._odo[rec.frame, 2]))
+        if (self.checkpoint_dir is not None
+                and rec.frame % self.checkpoint_every == 0):
+            self.save_checkpoint()
+
+    def save_checkpoint(self) -> str:
+        path = os.path.join(self.checkpoint_dir,
+                            f"ckpt_{self.counter:06d}.npz")
+        save_checkpoint(path, self.state, self.counter, self.cfg)
+        return path
+
+    @classmethod
+    def resume(cls, ckpt_path: str, images: ImageSequence,
+               track: OdometryTrack, **kw) -> "SlamSession":
+        """Rebuild a session from a checkpoint, on the device ``kw`` names
+        (``cuda`` by default, as for a new session)."""
+        state, counter, cfg, _ = load_checkpoint(ckpt_path,
+                                                 device=kw.get("device"))
+        sess = cls(cfg, images, track, **kw)
+        sess.state = state
+        sess.counter = counter
+        return sess
+
     def step(self) -> Optional[FrameRecord]:
         k = self.counter
         if k >= len(self.track):
@@ -176,15 +238,31 @@ class SlamSession:
                                     self._odo[k], bool(self._redirect[k]),
                                     self.cfg)
         row = _pack_row(out, self.cfg.max_landmarks).cpu().numpy()
-        rec = self._record(k, _unpack_row(row, self.cfg.max_landmarks),
-                           time.perf_counter() - t0)
+        tele = _unpack_row(row, self.cfg.max_landmarks)
+        rec = self._record(k, tele, time.perf_counter() - t0)
         self.counter += 1
+        self._flush_gate()
+        self._last_matched = rec.n_matched
+        self._post_frame(rec, tele)
         return rec
 
-    def step_chunk(self, k: int) -> List[FrameRecord]:
+    def _flush_gate(self) -> None:
+        """Let the gate see the last finished chunk's match count."""
+        if self._deferred_matched is not None:
+            self._last_matched = self._deferred_matched
+            self._deferred_matched = None
+
+    def step_chunk(self, k: int, *,
+                   defer_gate: bool = False) -> List[FrameRecord]:
         """Process up to ``k`` frames with one image upload and one
-        telemetry fetch. Frames up to a redirection frame are single-stepped
-        instead (the redirection branch itself raises: not ported)."""
+        telemetry fetch. Frames up to and including a redirection frame are
+        single-stepped instead.
+
+        With ``detect_host_gate`` the whole chunk runs with or without the
+        detection pipeline, decided from the latest match count the gate has
+        seen. ``defer_gate`` (the pipelined cadence of :meth:`run`) keeps
+        this chunk's count from the gate until the next chunk has been
+        decided."""
         k = min(k, len(self.track) - self.counter)
         if k <= 0:
             return []
@@ -201,6 +279,12 @@ class SlamSession:
                     break
                 recs.append(rec)
             return recs
+        detect = True
+        if self.detect_host_gate:
+            detect = self._last_matched < (
+                self.cfg.min_num + (self.detect_gate_margin or 0))
+        self.chunk_detect.append(detect)
+        self._flush_gate()
         t0 = time.perf_counter()
         M = self.cfg.max_landmarks
         imgs = self._to_device(np.stack([
@@ -210,13 +294,20 @@ class SlamSession:
         for i in range(k):
             self.state, out = slam_step(
                 self.state, imgs[i], self._odo[ks + i - 1], self._odo[ks + i],
-                False, self.cfg)
+                False, self.cfg, allow_detect=detect)
             rows.append(_pack_row(out, M))
         rows = torch.stack(rows).cpu().numpy()
         wall = (time.perf_counter() - t0) / k
-        recs = [self._record(ks + i, _unpack_row(rows[i], M), wall)
-                for i in range(k)]
         self.counter += k
+        recs = []
+        for i in range(k):
+            tele = _unpack_row(rows[i], M)
+            recs.append(self._record(ks + i, tele, wall))
+            self._post_frame(recs[-1], tele)
+        if defer_gate:
+            self._deferred_matched = recs[-1].n_matched
+        else:
+            self._last_matched = recs[-1].n_matched
         return recs
 
     def run(self, n_frames: Optional[int] = None, chunk: int = 1,
@@ -225,23 +316,48 @@ class SlamSession:
 
         ``chunk > 1`` processes that many frames per :meth:`step_chunk`;
         ``drop_tail`` stops before an incomplete final chunk instead of
-        single-stepping it."""
+        single-stepping it.
+
+        Host-gated detection (``detect_host_gate``) follows the JAX
+        session's cadence chunk for chunk. That session overlaps chunk
+        i + 1's device work with chunk i's telemetry fetch whenever no
+        watchdog is attached and either the gate is off or
+        ``detect_gate_margin`` is set; the gate of chunk i + 1 then reads
+        the match count at the end of chunk i - 1. Nothing is overlapped
+        here (the frame loop syncs with the host anyway), but each chunk's
+        detect flag is the one that cadence picks."""
         n = (len(self.track) - self.counter if n_frames is None
              else n_frames)
+        stale_gate = (self.watchdog is None and self.detect_host_gate
+                      and self.detect_gate_margin is not None)
+        if (stale_gate and chunk > 1
+                and self.detect_gate_margin < chunk
+                and self.cfg.min_num <= self.cfg.max_new_per_frame):
+            # margin below the per-chunk staleness AND a min_num small
+            # enough that one starved stretch can drop the map below
+            # redetection's reach (reference-default min_num=5 regime)
+            warnings.warn(
+                f"host-gated detection one chunk stale with margin "
+                f"{self.detect_gate_margin} < chunk {chunk} at "
+                f"min_num={self.cfg.min_num}: the stale gate can run "
+                f"starved for up to 2*chunk frames with no cushion",
+                stacklevel=2)
         done = 0
         while done < n and self.counter < len(self.track):
             ks = self.counter
+            # (a window cut short by the end of the track runs as one
+            # shorter chunk)
             full = (chunk > 1 and n - done >= chunk
-                    and ks + chunk <= len(self.track)
                     and not self._redirect[ks:ks + chunk].any())
             if full:
-                done += len(self.step_chunk(chunk))
+                done += len(self.step_chunk(chunk, defer_gate=stale_gate))
                 continue
             if chunk > 1 and drop_tail and not self._redirect[ks]:
                 break
             if self.step() is None:
                 break
             done += 1
+        self._flush_gate()
         return self.trajectory
 
     @property

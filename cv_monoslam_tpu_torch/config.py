@@ -161,14 +161,18 @@ class SlamConfig:
     #: "xla" = the plain torch version everywhere, "auto" = the kernel for
     #: CUDA tensors and the plain version for CPU tensors.
     vision_backend: str = "auto"
-    #: multi-device panel width of the row-sharded joint Cholesky (not
-    #: ported; single-device runs ignore it)
+    #: multi-device panel width of the row-sharded joint Cholesky; not
+    #: ported: a value > 0 raises NotImplementedError at the update
     dist_chol_panel: int = 0
-    #: fold feature integration into the frame's factorization budget
-    #: (sigma_mode="implicit" only; not ported yet)
+    #: sigma_mode="implicit" only: integrate new features through the
+    #: closed-form sqrt fold (a 6K x 6K Cholesky) instead of a D x D
+    #: refactorization
     integrate_fold: bool = True
     #: sigma-point realization: "full" materializes the (Na, 2Na+1) sigma
-    #: tensor (SLAM.cpp:1463); "implicit" is not ported yet.
+    #: tensor (SLAM.cpp:1463); "implicit" reads the touched rows off columns
+    #: of S, keeps the predicted covariance as a Gram and runs one D x D
+    #: factorization per frame (the large-state path; needs qr_mode and
+    #: update_mode "gram").
     sigma_mode: str = "full"
     #: compute dtype of the filter core
     dtype: str = "float32"

@@ -1,4 +1,4 @@
-"""Landmark lifecycle: masked add / delete / store.
+"""Landmark lifecycle: masked add / delete / store / loop re-add / redirect.
 
 The reference resizes state and covariance on every event (SLAM.cpp:818-1334
 add + permutation; 2397-2706 delete + Cholesky fold). Here every event is a
@@ -11,9 +11,10 @@ masked write into fixed slots plus one structured refactorization:
   * ADD k features: augmented UT over [x; (u, v, rho) * K_ADD] exactly as
     the reference's mapping function (SLAM.cpp:1177-1250), with outputs
     scattered straight into their slots.
-
-The redirection branch (snapshot -> robot-only reset -> loop re-add) and the
-implicit large-state integration are not ported yet and raise.
+  * REDIRECT: snapshot -> robot-only reset -> re-detect with loop re-add
+    (SLAM.cpp:1343-1428, 948-1015); the reference advances two odometry
+    rows inside one call, here the redirect branch handles frame t and the
+    next step processes frame t+1 normally.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
 from ..ops import qr_r
 from ..ops.linalg import gram
-from .motion import equilibrated_chol, structured_sqrt_gram
+from .motion import (equilibrated_chol, structured_sqrt_gram,
+                     structured_sqrt_gram_rows)
 from .sigma import deviations, generate_sigma, ut_weights
 from .state import (FilterState, StoredTable, count_repairs,
                     inactive_feature_defaults, replace)
@@ -126,8 +128,9 @@ def store_features(stored: StoredTable, recs: dict,
     Slot policy per record: (1) a valid slot already holding the same
     landmark id is overwritten; (2) else the first free slot; (3) else the
     OLDEST slot by insertion stamp is evicted. Records are taken in slot
-    order on the host (one sync to read the mask, one per stored record to
-    pick its slot): stores happen only on border deletions.
+    order on the host (one sync to read the mask, a few per stored record
+    to pick its slot): stores happen on border deletions and on a redirect
+    reset.
     """
     fields = {k: getattr(stored, k).clone() for k in
               ("valid", "stamp", *_RECORD_FIELDS)}
@@ -196,6 +199,150 @@ def update_features(state: FilterState, cfg: SlamConfig) -> FilterState:
 # ---------------------------------------------------------------------------
 
 
+def _fold_sqrt(S: torch.Tensor, Ep: torch.Tensor, Em: torch.Tensor,
+               ridx: torch.Tensor, valid: torch.Tensor, w, D: int):
+    """Integrated sqrt WITHOUT a D x D refactorization.
+
+    The augmented UT's output Gram (structured_gram_rows) differs from the
+    posterior S^T S only in the 6*KA target rows/cols, and the posterior S
+    has UNIT decoupled rows at those (inactive) slots. Splitting the
+    target-row deviations into odd/even sigma-branch parts
+    Es = (Ep - Em)/2, Ea = (Ep + Em)/2, the EXACT integrated covariance
+    factorizes in closed form:
+
+        S_new[:, F]    = S[:, F]                 (untouched columns)
+        S_new[:, T]    = V  = 2 wi gamma Es[:D]  (state-row first-order part)
+        S_new[T, T]   += R_d,  R_d^T R_d = Delta (conditional-given-state)
+
+        Delta = 2 wi (Es[D:]^T Es[D:] + Ea^T Ea)
+              + (2 wi - 4 wi^2 g^2) Es[:D]^T Es[:D]   [== 0 for UT weights]
+
+    S_new^T S_new equals the refactorizing path's Gram exactly, so this is
+    the same UT posterior through an orthogonally-different sqrt; S_new is
+    NOT triangular (robot-row couplings land below the diagonal in the new
+    columns), which the gram/implicit pipeline never needs: the next
+    frame's joint-Schur update re-triangularizes. Delta is PSD-singular in
+    exact arithmetic (new position rows are exact copies of the robot
+    position), so the equilibrated repair's first jitter rung fires
+    routinely and counts as a minor repair.
+
+    Invalid candidates: their Es columns are exactly gamma * e_t (the
+    original unit sigma rows), so V already reproduces e_t outside the
+    T-block; the T-block part is restored by adding diag(~valid) to Delta.
+    """
+    wi = 2.0 * w.wi_sr ** 2
+    g = w.gamma
+    Es = 0.5 * (Ep - Em)                                   # (na, 6KA)
+    Ea = 0.5 * (Ep + Em)
+    V = (wi * g) * Es[:D]                                  # (D, 6KA)
+    coef = wi - wi * wi * g * g                            # 0 for UT weights
+    delta = (wi * (Es[D:].T @ Es[D:] + Ea.T @ Ea)
+             + coef * (Es[:D].T @ Es[:D]))
+    # ridx order is [all pos rows, all ang rows] (3 per target per half)
+    vmask3 = torch.repeat_interleave(valid, 3)
+    vmask = torch.cat([vmask3, vmask3])
+    delta = delta + torch.diag((~vmask).to(S.dtype))
+    R_d, rep = equilibrated_chol(delta)
+    V[ridx] = 0.0                    # T-block rows live in R_d only
+    S_new = S.clone()
+    S_new[:, ridx] = V
+    S_new[ridx[:, None], ridx[None, :]] += R_d
+    return S_new, rep
+
+
+def _integrate_implicit(state: FilterState, safe_c: torch.Tensor,
+                        valid: torch.Tensor, targets: torch.Tensor,
+                        cfg: SlamConfig):
+    """Row-space feature integration (sigma_mode="implicit").
+
+    The augmented UT's outputs differ from the prior state only in the
+    6*KA target-slot rows, and the mapping function (SLAM.cpp:1177-1250)
+    reads only the robot rows + each candidate's own 3 noise rows. Every
+    needed row of the sigma set is read straight off a COLUMN of S (the
+    sigma rule chi_i = mu +- gamma*S_row_i) or a noise diagonal, so the
+    (na, 2na+1) tensor is never built. Outputs are identical to the full
+    path up to summation roundoff.
+
+    Returns (x_new, S_new, rep).
+    """
+    dtype, dev = state.x.dtype, state.x.device
+    D = cfg.state_dim
+    KA = cfg.max_new_per_frame
+    na = D + 3 * KA
+    ns = 2 * na + 1
+    w = ut_weights(na, cfg)
+    g = w.gamma
+    cam = cfg.camera
+
+    def state_rows(idx):
+        """(|idx|, ns) sigma-row values for state rows ``idx``."""
+        cols = torch.cat(
+            [state.S[:, idx].T,
+             torch.zeros((idx.shape[0], 3 * KA), dtype=dtype, device=dev)],
+            dim=1)
+        mu_r = state.x[idx][:, None]
+        return torch.cat([mu_r, mu_r + g * cols, mu_r - g * cols], dim=1)
+
+    rob = state_rows(torch.arange(D - 4, D, device=dev))   # (4, ns)
+    pos = rob[:3]                                          # (3, ns)
+    theta_r = rob[3]                                       # (ns,)
+
+    # candidate noise rows: mean +- gamma*noise at their own column only
+    noise = torch.where(
+        valid[:, None],
+        torch.tensor([cfg.sigma_measure, cfg.sigma_measure, cfg.sigma_rho],
+                     dtype=dtype, device=dev)[None, :],
+        torch.ones((KA, 3), dtype=dtype, device=dev))      # (KA, 3)
+    mu2 = torch.cat([safe_c, torch.full((KA, 1), cfg.rho0, dtype=dtype,
+                                        device=dev)], dim=1)   # (KA, 3)
+    ar3 = torch.arange(3, device=dev)
+    ka = torch.arange(KA, device=dev)
+    col_p = 1 + D + 3 * ka[:, None] + ar3[None, :]
+    base_cols = torch.zeros((KA, 3, ns), dtype=dtype, device=dev)
+    base_cols[ka[:, None], ar3[None, :], col_p] = g * noise
+    base_cols[ka[:, None], ar3[None, :], col_p + na] = -g * noise
+    uvr = mu2[:, :, None] + base_cols                      # (KA, 3, ns)
+
+    # mapping function (identical math to the full path)
+    uv = uvr[:, :2].permute(0, 2, 1)                       # (KA, ns, 2)
+    rho_in = uvr[:, 2]                                     # (KA, ns)
+    rwc = tf.yaw_matrix(theta_r)                           # (ns, 3, 3)
+    ray = cam_mod.image2camera(cam, cam_mod.undistort(cam, uv))
+    hlw = torch.einsum("sij,ksj->ksi", rwc, ray)           # (KA, ns, 3)
+    ang = tf.world_to_angles(hlw)                          # (KA, ns, 2)
+    if cfg.rho_init_mode == "ceiling":
+        rho_out = rho_in * torch.cos(ang[..., 1]) * torch.cos(ang[..., 0])
+    else:
+        rho_out = rho_in
+
+    pos_rows = (6 * targets[:, None] + ar3[None, :]).reshape(-1)
+    ang_rows = (6 * targets[:, None] + 3 + ar3[None, :]).reshape(-1)
+    pos_vals = pos[None].expand(KA, 3, ns).reshape(-1, ns)
+    ang_vals = torch.stack(
+        [ang[..., 0], ang[..., 1], rho_out], dim=1).reshape(-1, ns)
+
+    # invalid candidates keep their slots' ORIGINAL sigma rows (exact
+    # no-op, matching the full path's masked scatter)
+    ridx = torch.cat([pos_rows, ang_rows])
+    orig = state_rows(ridx)                                # (6KA, ns)
+    vmask6 = torch.repeat_interleave(valid, 3)
+    vals = torch.where(torch.cat([vmask6, vmask6])[:, None],
+                       torch.cat([pos_vals, ang_vals], dim=0), orig)
+
+    x_new = state.x.clone()
+    x_new[ridx] = vals @ w.mean_weights(dtype, dev)
+
+    base = vals[:, :1]
+    Ep = (vals[:, 1:na + 1] - base).T                      # (na, 6KA)
+    Em = (vals[:, na + 1:] - base).T
+    if cfg.integrate_fold and cfg.update_mode == "gram":
+        S_new, rep = _fold_sqrt(state.S, Ep, Em, ridx, valid, w, D)
+    else:
+        S_new, rep = structured_sqrt_gram_rows(state.S, Ep, Em, ridx, w,
+                                               with_flag=True)
+    return x_new, S_new, rep
+
+
 def integrate_features(state: FilterState, image: torch.Tensor,
                        corners: torch.Tensor, valid: torch.Tensor,
                        cfg: SlamConfig) -> FilterState:
@@ -204,10 +351,6 @@ def integrate_features(state: FilterState, image: torch.Tensor,
     corners: (K_ADD, 2) pixel positions; valid: (K_ADD,) mask. Invalid
     entries are exact no-ops (their slots keep the inactive invariant).
     """
-    if cfg.sigma_mode == "implicit":
-        raise NotImplementedError(
-            "implicit feature integration (integrate_fold) is not ported "
-            "yet (ROADMAP.md, Queue 1: the implicit large-state path)")
     dtype, dev = state.x.dtype, state.x.device
     D = cfg.state_dim
     KA = cfg.max_new_per_frame
@@ -224,6 +367,11 @@ def integrate_features(state: FilterState, image: torch.Tensor,
     centre = torch.tensor([cam.width / 2.0, cam.height / 2.0], dtype=dtype,
                           device=dev)
     safe_c = torch.where(valid[:, None], corners.to(dtype), centre)
+    if cfg.sigma_mode == "implicit":
+        x_new, S_new, rep = _integrate_implicit(state, safe_c, valid,
+                                                targets, cfg)
+        return _integrate_records(state, image, corners, valid, targets,
+                                  x_new, S_new, rep, cfg)
     mu2 = torch.cat([safe_c, torch.full((KA, 1), cfg.rho0, dtype=dtype,
                                         device=dev)], dim=1).reshape(-1)
     noise = torch.where(
@@ -356,22 +504,102 @@ def extract_patches(image: torch.Tensor, corners: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# redirection (SLAM.cpp:948-1015, 1343-1428): not ported yet
+# loop re-insertion + redirection (SLAM.cpp:948-1015, 1343-1428)
 # ---------------------------------------------------------------------------
-
-_REDIRECT = ("the redirection branch is not ported yet (ROADMAP.md, "
-             "Queue 1: the redirect branch)")
 
 
 def readd_stored(state: FilterState, readd_mask: torch.Tensor,
                  cfg: SlamConfig) -> FilterState:
-    raise NotImplementedError(_REDIRECT)
+    """Splice stored features back into free slots with their saved 6-dim
+    state and 6x6 sqrt block, decoupled from the rest (SLAM.cpp:948-1015).
+
+    Stored records are taken in table order; each takes the first slot that
+    is free after the previous one was filled, and records left over when
+    the map is full stay in the table. Two host reads (the set entries and
+    the free slots) replace a per-record loop."""
+    dev = state.x.device
+    js = torch.nonzero(readd_mask).flatten()
+    free = torch.nonzero(~state.lm.active).flatten()
+    n = min(js.numel(), free.numel())
+    if n == 0:
+        return state
+    js, slots = js[:n], free[:n]
+    sd, lm = state.stored, state.lm
+    rows = 6 * slots[:, None] + torch.arange(6, device=dev)[None, :]  # (n, 6)
+    flat = rows.reshape(-1)
+    x_new = state.x.clone()
+    x_new[flat] = sd.state[js].reshape(-1).to(x_new.dtype)
+    # zero slot rows+cols then write the saved blocks (decoupled)
+    S_new = state.S.clone()
+    S_new[flat] = 0.0
+    S_new[:, flat] = 0.0
+    S_new[rows[:, :, None], rows[:, None, :]] = sd.sr[js].to(S_new.dtype)
+
+    def put(field, vals):
+        out = field.clone()
+        out[slots] = vals
+        return out
+
+    lm_new = replace(
+        lm,
+        active=put(lm.active, True),
+        lid=put(lm.lid, sd.lid[js]),
+        is_loop=put(lm.is_loop, True),
+        n_predict=put(lm.n_predict, 0),
+        n_match=put(lm.n_match, 0),
+        visible=put(lm.visible, False),
+        matched=put(lm.matched, False),
+        init_pixel=put(lm.init_pixel, sd.init_pixel[js]),
+        init_trans=put(lm.init_trans, sd.init_trans[js]),
+        init_theta=put(lm.init_theta, sd.init_theta[js]),
+        init_patch=put(lm.init_patch, sd.init_patch[js]),
+        xyz=put(lm.xyz, sd.xyz[js]),
+    )
+    valid = sd.valid.clone()
+    valid[js] = False
+    return replace(state, x=x_new, S=S_new, lm=lm_new,
+                   stored=replace(sd, valid=valid))
 
 
 def project_stored(state: FilterState, cfg: SlamConfig) -> torch.Tensor:
-    raise NotImplementedError(_REDIRECT)
+    """Current-view pixels of stored features (SLAM.cpp:618-638), (K, 2)."""
+    pos = state.x[-4:-1]
+    rcw = tf.yaw_matrix(state.x[-1]).T
+    hlw = tf.state_to_world(state.stored.state, pos)
+    hlr = torch.einsum("ij,kj->ki", rcw, hlw)
+    return cam_mod.project(cfg.camera, hlr)
 
 
 def redirect_reset(state: FilterState, theta_odo: torch.Tensor,
                    cfg: SlamConfig) -> FilterState:
-    raise NotImplementedError(_REDIRECT)
+    """Snapshot everything, reset to robot-only state (SLAM.cpp:1354-1405).
+
+    Feature re-detection / loop re-add happens right after via the normal
+    add path with is_redirect=True.
+    """
+    dtype, dev = state.x.dtype, state.x.device
+    M = cfg.max_landmarks
+    recs = snapshot_records(state, cfg)
+    stored = store_features(state.stored, recs, state.lm.active)
+
+    x_new = _feature_defaults(M, dtype, dev)
+    x_new[-4] = state.x[-4]
+    x_new[-3] = state.x[-3]
+    x_new[-1] = theta_odo.to(dtype)
+    s_diag = torch.ones(cfg.state_dim, dtype=dtype, device=dev)
+    s_diag[-4:] = torch.tensor(
+        [cfg.sigma_x, cfg.sigma_y, cfg.sigma_z, cfg.sigma_theta],
+        dtype=dtype, device=dev)
+    lm = state.lm
+    zero_i = torch.zeros_like(lm.n_predict)
+    lm_new = replace(
+        lm,
+        active=torch.zeros_like(lm.active),
+        lid=torch.zeros_like(lm.lid),
+        is_loop=torch.zeros_like(lm.is_loop),
+        n_predict=zero_i, n_match=zero_i,
+        visible=torch.zeros_like(lm.visible),
+        matched=torch.zeros_like(lm.matched),
+    )
+    return replace(state, x=x_new, S=torch.diag(s_diag), lm=lm_new,
+                   stored=stored)

@@ -103,13 +103,84 @@ def _motion_sqrt_gram(S: torch.Tensor, sig: torch.Tensor, w, D: int,
     return structured_sqrt_gram(S, sig[:D], ridx, w, na, with_flag=True)
 
 
+def _control_noise(rot1, trans, rot2, cfg: SlamConfig, dtype):
+    """Capped control sqrt-noise diagonal Mt (SLAM.cpp:1456-1458)."""
+    mt = torch.stack([
+        cfg.a1 * rot1 ** 2 + cfg.a2 * trans ** 2,
+        cfg.a3 * trans ** 2 + cfg.a4 * rot1 ** 2 + cfg.a4 * rot2 ** 2,
+        cfg.a1 * rot2 ** 2 + cfg.a2 * trans ** 2,
+    ]).to(dtype)
+    return torch.clamp(mt, max=cfg.motion_noise_cap)
+
+
+def motion_predict_implicit(state: FilterState, odo_prev: torch.Tensor,
+                            odo_cur: torch.Tensor, cfg: SlamConfig):
+    """Time update without materializing the sigma tensor.
+
+    The motion model touches exactly three state rows {x, y, theta}, and the
+    sigma rule chi_i = mu +- gamma*S_row_i means the (2Na+1)-vector of
+    row-j values is read straight off COLUMN j of S. Propagating only those
+    row-vectors (plus the three control-noise rows) reproduces the full
+    UT's robot-row outputs exactly; the mean of every untouched row is mu_j
+    (the +- branches cancel at equal weights).
+
+    The predicted covariance is returned as a GRAM in ``cache.g_pred``; the
+    update factorizes the posterior directly, so ``state.S`` is STALE until
+    then (no stage in between reads S: data association uses lm and pose
+    fields only).
+    """
+    dtype = state.x.dtype
+    dev = state.x.device
+    D = cfg.state_dim
+    na = D + 5
+    ns = 2 * na + 1
+    w = ut_weights(na, cfg)
+    g = w.gamma
+
+    rot1, trans, rot2 = odometry_control(odo_prev, odo_cur)
+    mt = _control_noise(rot1, trans, rot2, cfg, dtype)
+
+    # (3, 2Na+1) values of state rows x, y, theta across the sigma set
+    ridx = torch.tensor([D - 4, D - 3, D - 1], device=dev)
+    cols = torch.cat([state.S[:, ridx].T,
+                      torch.zeros((3, 5), dtype=dtype, device=dev)], dim=1)
+    mu_r = state.x[ridx][:, None]
+    rows = torch.cat([mu_r, mu_r + g * cols, mu_r - g * cols], dim=1)
+    # (3, 2Na+1) control-noise rows: +-gamma*mt at their own column only
+    noise = torch.zeros((3, ns), dtype=dtype, device=dev)
+    k = torch.arange(3, device=dev)
+    noise[k, 1 + D + k] = g * mt
+    noise[k, 1 + na + D + k] = -g * mt
+
+    r1 = rot1 - noise[0]
+    tr = trans - noise[1]
+    r2 = rot2 - noise[2]
+    th_row = rows[2]
+    R = torch.stack([rows[0] + tr * torch.cos(th_row + r1),
+                     rows[1] + tr * torch.sin(th_row + r1),
+                     th_row + r1 + r2])                        # (3, 2Na+1)
+
+    x_new = state.x.clone()
+    x_new[ridx] = R @ w.mean_weights(dtype, dev)
+
+    base = R[:, :1]
+    Ep = (R[:, 1:na + 1] - base).T                             # (Na, 3)
+    Em = (R[:, na + 1:] - base).T
+    g_pred = structured_gram_rows(state.S, Ep, Em, ridx, w)
+
+    cache = PredictCache(
+        sigma=None, sigma_pix=None,
+        pred=torch.zeros((cfg.max_landmarks, 2), dtype=dtype, device=dev),
+        g_pred=g_pred,
+    )
+    return replace(state, x=x_new), cache
+
+
 def motion_predict(state: FilterState, odo_prev: torch.Tensor,
                    odo_cur: torch.Tensor, cfg: SlamConfig):
     """One SRUKF time update. Returns (new_state, PredictCache)."""
     if cfg.sigma_mode == "implicit":
-        raise NotImplementedError(
-            "sigma_mode='implicit' is not ported yet (ROADMAP.md, Queue 1: "
-            "the implicit large-state path)")
+        return motion_predict_implicit(state, odo_prev, odo_cur, cfg)
     dtype = state.x.dtype
     dev = state.x.device
     D = cfg.state_dim
@@ -117,12 +188,7 @@ def motion_predict(state: FilterState, odo_prev: torch.Tensor,
     w = ut_weights(na, cfg)
 
     rot1, trans, rot2 = odometry_control(odo_prev, odo_cur)
-    mt = torch.stack([
-        cfg.a1 * rot1 ** 2 + cfg.a2 * trans ** 2,
-        cfg.a3 * trans ** 2 + cfg.a4 * rot1 ** 2 + cfg.a4 * rot2 ** 2,
-        cfg.a1 * rot2 ** 2 + cfg.a2 * trans ** 2,
-    ]).to(dtype)
-    mt = torch.clamp(mt, max=cfg.motion_noise_cap)
+    mt = _control_noise(rot1, trans, rot2, cfg, dtype)
 
     # augmented mean + sqrt (expandMatrix, SLAM.cpp:1461-1462). The 2
     # measurement-noise dims stay zero: independent per-landmark pixel

@@ -7,7 +7,10 @@ stage order:
     -> updateFeaturesInformation -> [addFeatures if matches < min_num]
 
 Redirection frames (|dtheta| > 45 deg odometry steps, SLAM.cpp:1354-1428)
-take a separate branch that is not ported yet: such a frame raises.
+take a separate branch: snapshot -> robot-only reset -> re-detect with loop
+re-insertion. The reference consumes two odometry rows inside one call;
+here the redirect branch handles frame t and the next step processes frame
+t+1 normally — the same net computation.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from ..frontend.detect import (candidate_filters, escalate_raws,
                                gftt_candidates, select_new_corners)
 from ..frontend.matching import data_association
 from ..utils.watchdog import health_check
-from .lifecycle import _REDIRECT, integrate_features, update_features
+from .lifecycle import (integrate_features, project_stored, readd_stored,
+                        redirect_reset, update_features)
 from .measurement import measurement_predict
 from .motion import motion_predict
 from .state import FilterState, replace
@@ -34,8 +38,6 @@ def add_features(state: FilterState, image: torch.Tensor, cfg: SlamConfig,
     including the insureEnoughFeatures raw-count escalation
     (SLAM.cpp:777-808). ``should_add`` (bool or 0-d bool tensor) masks the
     whole operation."""
-    if is_redirect:
-        raise NotImplementedError(_REDIRECT)
     lm = state.lm
     # proximity set: every active landmark's predicted + matched pixel;
     # never-predicted/never-matched slots hold zeros (the reference's
@@ -44,12 +46,46 @@ def add_features(state: FilterState, image: torch.Tensor, cfg: SlamConfig,
     avoid_valid = torch.cat([lm.active, lm.active])
     n_matched = torch.sum(lm.matched & lm.active)
     n_map = torch.sum(lm.active)
-    base = cfg.n_initial_raws if is_initial else cfg.n_process_raws
+    base = (cfg.n_initial_raws if (is_initial or is_redirect)
+            else cfg.n_process_raws)
 
     pix, kept, raw_rank, resp = gftt_candidates(image, cfg)
     fok = candidate_filters(pix, cfg, avoid, avoid_valid, n_matched)
-    raws = escalate_raws(kept, raw_rank, fok, n_map, 0, base, cfg)
-    kept_final = kept & fok & (raw_rank < raws)
+
+    if is_redirect:
+        # loop-point detection: corners near a stored feature's projected
+        # pixel re-add that feature instead of creating a new one
+        # (SLAM.cpp:618-638, 699-729). Loop re-adds count toward the
+        # escalation target like the reference's loop_ids.
+        sp = project_stored(state, cfg)                      # (Ks, 2)
+        sp_ok = state.stored.valid & torch.any(sp != 0.0, dim=-1)
+        d2 = torch.sum((pix[:, None, :] - sp[None, :, :]) ** 2, dim=-1)
+        near = (d2 < cfg.min_dist2) & sp_ok[None, :] \
+            & (kept & fok)[:, None]                          # (K, Ks)
+        new_ok = kept & fok & ~torch.any(near, dim=1)
+
+        max_raws = max(30, base)
+        steps = max(1, -(-(max_raws - base) // max(cfg.min_num, 1)) + 1)
+        ladder = torch.clamp(
+            base + cfg.min_num * torch.arange(steps, device=pix.device),
+            max=max_raws)
+        in_r = raw_rank[None, :] < ladder[:, None]           # (steps, K)
+        counts = torch.sum(new_ok[None, :] & in_r, dim=1)
+        loops = torch.sum(
+            torch.any(near[None, :, :] & in_r[:, :, None], dim=1), dim=1)
+        enough = (n_map + counts + loops) >= cfg.min_num
+        # first rung that reaches min_num, else the last
+        idx = torch.where(torch.any(enough),
+                          torch.argmax(enough.to(torch.int32)),
+                          torch.full((), steps - 1, device=pix.device))
+        raws = ladder[idx]
+
+        readd_mask = torch.any(near & (raw_rank < raws)[:, None], dim=0)
+        kept_final = new_ok & (raw_rank < raws)
+        state = readd_stored(state, readd_mask, cfg)
+    else:
+        raws = escalate_raws(kept, raw_rank, fok, n_map, 0, base, cfg)
+        kept_final = kept & fok & (raw_rank < raws)
 
     n_free = torch.sum(~state.lm.active)
     corners, valid = select_new_corners(pix, kept_final, resp,
@@ -78,13 +114,16 @@ def slam_step(state: FilterState, image: torch.Tensor,
     sync per frame.
     """
     if redirect:
-        raise NotImplementedError(_REDIRECT)
-    state, cache = motion_predict(state, odo_prev, odo_cur, cfg)
-    state, cache = measurement_predict(state, cache, cfg)
-    state = data_association(state, image, cfg)
-    state = kalman_update(state, cache, cfg)
-    state = update_features(state, cfg)
-    if allow_detect:
+        state = redirect_reset(state, odo_cur[2], cfg)
+        state = add_features(state, image, cfg, is_redirect=True,
+                             should_add=True)
+    else:
+        state, cache = motion_predict(state, odo_prev, odo_cur, cfg)
+        state, cache = measurement_predict(state, cache, cfg)
+        state = data_association(state, image, cfg)
+        state = kalman_update(state, cache, cfg)
+        state = update_features(state, cfg)
+    if allow_detect and not redirect:
         n_matched = torch.sum(state.lm.matched & state.lm.active)
         if cfg.gate_detection:
             if int(n_matched) < cfg.min_num:
@@ -103,7 +142,7 @@ def slam_step(state: FilterState, image: torch.Tensor,
         n_map=torch.sum(lm.active),
         n_visible=torch.sum(lm.visible & lm.active),
         n_matched=torch.sum(lm.matched & lm.active),
-        redirected=torch.tensor(False, device=state.x.device),
+        redirected=torch.tensor(bool(redirect), device=state.x.device),
         lm_lid=lm.lid,
         lm_active=lm.active,
         lm_matched=lm.matched & lm.active,

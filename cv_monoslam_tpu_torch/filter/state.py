@@ -120,8 +120,13 @@ class PredictCache:
     sigma: Any                # (Na, 2Na+1) augmented, motion-propagated
     sigma_pix: Any            # (M, 2, 2Na+1) projected pixels per slot
     pred: torch.Tensor        # (M, 2) weighted-mean pixels
-    h_lin: Any = None         # implicit mode only (not ported)
-    g_pred: Any = None        # implicit mode only (not ported)
+    #: (M, 2, 10) UT-implied measurement linearization per landmark,
+    #: only under sigma_mode="implicit" (sigma/sigma_pix are None there)
+    h_lin: Any = None
+    #: (D, D) motion-predicted covariance GRAM, only under
+    #: sigma_mode="implicit": the update factorizes the posterior directly,
+    #: state.S is STALE until then
+    g_pred: Any = None
 
 
 def inactive_feature_defaults(dtype, device) -> torch.Tensor:

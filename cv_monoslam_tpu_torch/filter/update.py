@@ -13,8 +13,12 @@ emerges inside one backward-stable factorization, and dx = Ryx^T Ryy^-T nu.
 Unmatched slots get zeroed Z columns plus unit noise — exact no-ops that
 keep every shape fixed.
 
-``update_mode`` "batched" and "sequential", and the implicit-mode update,
-are not ported yet and raise.
+Under ``sigma_mode="implicit"`` the same joint matrix is assembled from the
+UT-implied per-landmark linearization and the motion-predicted covariance
+Gram (``_update_gram_implicit``): the frame's only D x D factorization.
+
+``update_mode`` "batched" and "sequential" are not ported yet and raise, as
+does the row-sharded joint Cholesky (``dist_chol_panel > 0``).
 """
 
 from __future__ import annotations
@@ -72,6 +76,75 @@ def _update_gram(state: FilterState, cache: PredictCache,
                    n_skipped=state.n_skipped + skipped)
 
 
+def _update_gram_implicit(state: FilterState, cache: PredictCache,
+                          cfg: SlamConfig) -> FilterState:
+    """Gram update from the UT-implied linearization (sigma_mode implicit).
+
+    With A = the full-state sigma deviations, A^T A = c * S^T S exactly
+    (c = 2*(wi_sr*gamma)^2, the structured-Gram identity), and the
+    innovation deviations are Z = A[:, cols_m] H_m^T per landmark. So
+
+        Pxy = A^T Z = c * (G Hbar^T),   Pyy = Z^T Z = c * Hbar G Hbar^T
+
+    with G = S^T S and Hbar the (2M x D) block-sparse stack of the H_m:
+    everything is Grams of S plus small per-landmark (6/4)-dim einsums; the
+    (2Na x 2M) innovation tensor never exists.
+    """
+    dtype = state.x.dtype
+    D = cfg.state_dim
+    M = cfg.max_landmarks
+    lm = state.lm
+    H = cache.h_lin                                       # (M, 2, 10)
+    any_match = torch.any(lm.matched)
+    w = ut_weights(D + 5, cfg)
+    c = 2.0 * (w.wi_sr * w.gamma) ** 2
+
+    # the motion stage hands over the predicted covariance GRAM (state.S is
+    # stale); this stage performs the frame's only D x D factorization, on
+    # the posterior
+    G = cache.g_pred if cache.g_pred is not None else gram(state.S)
+
+    # B2 = G Hbar^T (D, 2M), built blockwise from G's landmark/robot cols
+    Gf = G[:, : 6 * M].reshape(D, M, 6)
+    Gr = G[:, D - 4:]
+    B2 = (torch.einsum("dmi,mki->dmk", Gf, H[:, :, :6])
+          + torch.einsum("di,mki->dmk", Gr, H[:, :, 6:])).reshape(D, 2 * M)
+    cmask = torch.repeat_interleave(lm.matched, 2)        # (2M,)
+    B2 = torch.where(cmask[None, :], B2, torch.zeros_like(B2))
+
+    # Pyy = Hbar B2 (2M, 2M), rows of unmatched slots zeroed
+    B2f = B2[: 6 * M].reshape(M, 6, 2 * M)
+    B2r = B2[D - 4:]
+    pyy = (torch.einsum("mki,mia->mka", H[:, :, :6], B2f)
+           + torch.einsum("mki,ia->mka", H[:, :, 6:], B2r)
+           ).reshape(2 * M, 2 * M)
+    pyy = torch.where(cmask[:, None], pyy, torch.zeros_like(pyy))
+    nu = (lm.match_px - lm.pred).reshape(-1)
+    nu = torch.where(cmask, nu, torch.zeros_like(nu))
+    r_noise = torch.where(
+        cmask, torch.full_like(nu, cfg.sigma_measure ** 2),
+        torch.ones_like(nu)).to(dtype)
+    pyy = c * 0.5 * (pyy + pyy.T) + torch.diag(r_noise)
+    pxy = c * B2
+
+    S_new, dx, rep = _joint_schur_chol(pyy, pxy, G, nu)
+    # a no-match frame factorizes G itself (Pxy = 0): the posterior equals
+    # the prediction and the frame's single Cholesky still refreshes S
+    ok = torch.isfinite(S_new).all() & torch.isfinite(dx).all()
+    # counted regardless of any_match: on a NO-match frame ~ok falls back
+    # to the STALE pre-motion sqrt, silently dropping the frame's motion
+    # noise — telemetry must surface that, not report a clean frame
+    skipped = (~ok).to(torch.int32)
+
+    x_new = torch.where(ok & any_match, state.x + dx, state.x)
+    # unrepairable posterior: fall back to the pre-motion sqrt (finite,
+    # conservative — the frame degrades to prediction-only, counted)
+    S_new = torch.where(ok, S_new, state.S)
+    state = count_repairs(state, rep)
+    return replace(state, x=x_new, S=S_new,
+                   n_skipped=state.n_skipped + skipped)
+
+
 def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
                       nu: torch.Tensor):
     """Posterior sqrt + state correction via ONE joint Cholesky.
@@ -106,10 +179,12 @@ def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
 def kalman_update(state: FilterState, cache: PredictCache,
                   cfg: SlamConfig) -> FilterState:
     if cfg.update_mode == "gram":
-        if cfg.sigma_mode == "implicit":
+        if cfg.dist_chol_panel > 0:
             raise NotImplementedError(
-                "the implicit-mode update is not ported yet (ROADMAP.md, "
-                "Queue 1: the implicit large-state path)")
+                "dist_chol_panel > 0 (the row-sharded joint Cholesky) is "
+                "not ported yet (ROADMAP.md, Queue 1: multi-device paths)")
+        if cfg.sigma_mode == "implicit":
+            return _update_gram_implicit(state, cache, cfg)
         return _update_gram(state, cache, cfg)
     if cfg.update_mode in ("batched", "sequential"):
         raise NotImplementedError(

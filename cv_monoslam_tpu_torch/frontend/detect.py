@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -109,14 +110,16 @@ def gftt_candidates(image: torch.Tensor, cfg: SlamConfig):
     cand = top > float("-inf")
 
     # greedy min-dist in response order (GFTT's internal separation): an
-    # exact sequential recurrence over the (K, K) clash matrix, kept on
-    # the device (no host sync)
+    # exact sequential recurrence over the (K, K) clash matrix. It runs on
+    # the host (one device read): as K launches of a few device ops each it
+    # cost more than the rest of the detection at K = 768
     d2 = torch.sum((pix[:, None, :] - pix[None, :, :]) ** 2, dim=-1)
-    close = d2 < cfg.min_dist2
-    kept = torch.zeros(K, dtype=torch.bool, device=image.device)
-    kept[0] = cand[0]
-    for i in range(1, K):
-        kept[i] = cand[i] & ~torch.any(kept[:i] & close[i, :i])
+    close = (d2 < cfg.min_dist2).cpu().numpy()
+    cand_h = cand.cpu().numpy()
+    kept_h = np.zeros(K, dtype=bool)
+    for i in range(K):
+        kept_h[i] = cand_h[i] and not np.any(kept_h[:i] & close[i, :i])
+    kept = torch.as_tensor(kept_h, device=image.device)
     raw_rank = torch.cumsum(kept.to(torch.int32), 0, dtype=torch.int32) - 1
     return pix, kept, raw_rank, top
 

@@ -24,14 +24,16 @@ def gram(a: torch.Tensor) -> torch.Tensor:
 
 def _chol_upper(g: torch.Tensor):
     """Upper Cholesky of the symmetrized ``g`` (JAX symmetrizes its input
-    the same way). Returns (R, bad) with ``bad`` a 0-d bool tensor; a failed
-    factor is NaN on and above the diagonal and 0 below, as JAX returns
-    it."""
-    g = 0.5 * (g + g.T)
-    r, info = torch.linalg.cholesky_ex(g, upper=True)
-    bad = (info != 0) | ~torch.isfinite(r).all()
-    return torch.where(bad, torch.triu(torch.full_like(r, float("nan"))),
-                       r), bad
+    the same way). Returns (R, bad) with ``bad`` a Python bool, read on the
+    host (one device sync); a failed factor is NaN on and above the diagonal
+    and 0 below, as JAX returns it."""
+    r, info = torch.linalg.cholesky_ex(0.5 * (g + g.T), upper=True)
+    bad = bool((info != 0) | ~torch.isfinite(r).all())
+    if bad:
+        return torch.triu(torch.full_like(r, float("nan"))), bad
+    # row-major copy: ``upper=True`` may hand back a transposed view, and the
+    # products downstream round differently on another memory layout
+    return r.contiguous(), bad
 
 
 def chol_psd_flagged(g: torch.Tensor, jitter: float):
@@ -46,19 +48,20 @@ def chol_psd_flagged(g: torch.Tensor, jitter: float):
     escalated 1e6x rung. If even that rung fails, R is NaN (on and above
     the diagonal).
 
-    Each rung's test reads ``bad`` on the host: one device sync for a clean
-    factorization, one more per extra rung.
+    Each rung's test is read on the host: one device sync for a clean
+    factorization, one more per extra rung. A clean factorization builds no
+    shifted copy of ``g``.
     """
-    n = g.shape[0]
     scale = torch.clamp(torch.max(torch.abs(torch.diagonal(g))), min=1.0)
-    eye = torch.eye(n, dtype=g.dtype, device=g.device)
     r, bad = _chol_upper(g)
     level = 0
     for mult in (1.0, 1e2, 1e3, 1e6):
-        if not bool(bad):
+        if not bad:
             break
         level += 1
-        r, bad = _chol_upper(g + ((mult * jitter) * scale) * eye)
+        shifted = g.clone()
+        shifted.diagonal().add_((mult * jitter) * scale)
+        r, bad = _chol_upper(shifted)
     return r, level
 
 
