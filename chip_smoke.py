@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke (one card)
     python3 chip_smoke.py --profile  # the smoke, then a profiled chunk
     python3 chip_smoke.py --profile --config 3   # ... of config 3
+    python3 chip_smoke.py --profile --config 4   # ... of config 4
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
@@ -11,7 +12,7 @@ non-zero and prints no result):
 1. the card: name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. build: ``nvcc`` compiles ``cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu``
    for sm_90a into ``.cache/torch_ext/`` (seconds printed);
-3. kernel vs plain version on the card, for both kernels at M = 32, 37
+3. kernel vs plain version on the card, for both kernels at M = 16, 32, 37
    and 576 on seeded random inputs (integer-valued regions like uint8
    frames, a flat window, a flat template, a planted exact match), max
    |diff| <= 1e-4. The NCC kernel normalizes the template itself and also
@@ -46,7 +47,27 @@ non-zero and prints no result):
 7. checkpoint on the card: a config-3 session is saved after three chunks,
    resumed on ``cuda``, and one more chunk from each must leave the two
    states equal bit for bit;
-8. one ``{"kernels": [...]}`` line, and as the last line
+8. config 4 at full width: the keyframe backend on all 119 tracked frames
+   of the frozen ``bench4_lap`` fixture (M = 16, a keyframe every 5 frames,
+   BA window 4, float32; the configuration ``bench.py`` calls config 4).
+   (a) One run with ``backend=TelemetryCapture()``, then ``replay`` of the
+   captured stream at the shipped window-BA gate and at gate 3.0; (b) a
+   fresh run with a live ``BackendSession``. Checks: 119 frames, finite
+   poses and refined poses; (b) equals (a)'s shipped-gate replay exactly
+   (keyframe frames, loop edges, every keyframe pose, the refined
+   trajectory); >= 15 keyframes, >= 1 loop edge, refined ATE below filter
+   ATE; no more escalated repairs or skipped updates than the JAX engine in
+   float32 on a CPU (``CONFIG4_JAX_CPU``, printed beside the card's
+   numbers, not gated on); each kernel once per tracked frame at M = 16 in
+   each run; both kernels against their plain versions on three captured
+   frames. Prints frames/s of both runs and the wall time of every
+   ``refine_window`` / ``optimize_graph`` call;
+9. the command line: ``python3 -m cv_monoslam_tpu_torch run`` as a
+   subprocess with no ``--device`` (it must pick the card), with recorder,
+   watchdog, backend and checkpoints on an 8-frame synthetic sequence, a
+   second run resumed from its checkpoint, and ``info``; checks the exit
+   codes, the files written and that ``info`` names the card;
+10. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -90,6 +111,19 @@ CONFIG3_JAX_CPU = dict(escalations=0, skipped=0, repairs=59, peak_map=576,
 #: a CPU alike (``PYTHONPATH=. python tests/test_torch_redirect.py``): map
 #: size after the branch, landmarks back with is_loop, stored records left
 REDIRECT_JAX_CPU = dict(n_map=5, n_loop=5, stored_valid=4)
+#: config 4 of ``bench.py`` (``bench_backend``)
+CONFIG4 = dict(max_landmarks=16, max_new_per_frame=4, max_detections=32,
+               keyframe_every=5, ba_window=4)
+#: the JAX engine on the same 119 frames, float32 on a CPU, captured and
+#: replayed as ``bench_backend`` does
+#: (``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_slice.py``).
+#: Only ``escalations`` and ``skipped`` are limits; the loop gates are
+#: knife edges of the filter's roundoff, so the rest is printed, not gated.
+CONFIG4_JAX_CPU = dict(
+    frames=119, repairs=70, escalations=0, skipped=0,
+    ate_filter=0.3586413212610804, ate_window_gate3=0.13835291100066124,
+    ate_refined=0.13835291100066124, keyframes=23,
+    loop_edges=[[0, 20], [0, 21], [1, 22]])
 
 
 def log(*a):
@@ -276,7 +310,7 @@ def phase_kernel_checks(dev) -> dict:
     rng = np.random.default_rng(0)
     errs = {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
             "warp_bilinear": 0.0}
-    for m in (32, 37, 576):
+    for m in (16, 32, 37, 576):
         regions, patches = ncc_inputs(m, rng, dev)
         got = check_ncc(regions, patches, f"M={m}", errs)
         planted = float(got[0, 3, 4])
@@ -340,7 +374,7 @@ def phase_kernel_times(dev) -> dict:
         f"{bare_host:.4f}), torch.empty + launch {floor:.4f} ms (host "
         f"{floor_host:.4f})")
 
-    for m in (32, 576):
+    for m in (16, 32, 576):
         base = ncc_inputs(m, rng, dev)
         sets = perturbed(base, rng, dev)
         k, host = time_ms(
@@ -704,11 +738,232 @@ def phase_checkpoint(dev) -> dict:
     return res
 
 
+def timed_solvers(backend) -> dict:
+    """Wrap ``backend``'s two solver entry points so each call's wall time
+    (host clock, the device synchronized at both ends) is kept."""
+    times = {"refine_window": [], "optimize_graph": []}
+
+    def wrap(name):
+        real = getattr(backend, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(backend, name, timed)
+
+    for name in times:
+        wrap(name)
+    return times
+
+
+def backends_differ(a, b) -> list:
+    """Where two BackendSessions differ at all (exact comparison)."""
+    diffs = []
+    if [k.frame for k in a.keyframes] != [k.frame for k in b.keyframes]:
+        return ["keyframe frames"]
+    if [(i, j) for i, j, _, _ in a.loop_edges] != \
+            [(i, j) for i, j, _, _ in b.loop_edges]:
+        diffs.append("loop edges")
+    elif any(not np.array_equal(ra, rb) or wa != wb
+             for (_, _, ra, wa), (_, _, rb, wb)
+             in zip(a.loop_edges, b.loop_edges)):
+        diffs.append("loop edge measurements")
+    for ka, kb in zip(a.keyframes, b.keyframes):
+        for f in ("pose", "pose0", "pose_filter", "xyz", "map_xyz"):
+            if not np.array_equal(getattr(ka, f), getattr(kb, f)):
+                diffs.append(f"{f} of keyframe {ka.frame}")
+    return diffs
+
+
+def phase_config4(dev, errs: dict, smi: str) -> dict:
+    """The keyframe backend at ``bench.py``'s config-4 width: capture +
+    replay, then a live backend, which must equal the replay exactly."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.backend.replay import TelemetryCapture, replay
+    from cv_monoslam_tpu_torch.backend.session import BackendSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    chunk = 8
+    seq, track, gt_xy, _ = fixtures.load("bench4_lap")
+    cfg = SlamConfig(**CONFIG4)
+    n_tracked = len(track) - 1
+
+    def run(backend):
+        reset_counters()
+        sess = SlamSession(cfg, seq, track, backend=backend, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run(chunk=chunk)
+        torch.cuda.synchronize()
+        return sess, time.perf_counter() - t0, read_counters()
+
+    # (a) the filter with its telemetry captured, then the backend by replay
+    cap = TelemetryCapture()
+    with captured_kernel_inputs() as captured:
+        sa, dt_a, counts_a = run(cap)
+    t0 = time.perf_counter()
+    be, refinements = replay(cap.calls, cfg, device=dev)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    be_g, refs_g = replay(cap.calls, cfg, ba_apply_gate=3.0, device=dev)
+    ate_f = float(sa.ate(gt_xy))
+    sa.backend, sa.refinements = be_g, refs_g
+    ate_g = float(sa.ate(gt_xy, refined=True))
+    sa.backend, sa.refinements = be, refinements
+    ate_r = float(sa.ate(gt_xy, refined=True))
+
+    # (b) a fresh run with the live backend
+    live = BackendSession(cfg)                 # no device named: the card
+    solver_ms = timed_solvers(live)
+    sb, dt_b, counts_b = run(live)
+    if live.device.type != "cuda":
+        raise AssertionError(f"the live backend ran on {live.device}")
+
+    recs = sb.records
+    summary = live.summary(sb.refinements)
+    res = dict(
+        frames=len(recs), landmarks=cfg.max_landmarks,
+        fps_capture=len(sa.records) / dt_a, fps_live=len(recs) / dt_b,
+        replay_s=replay_s,
+        ate_filter=ate_f, ate_window_gate3=ate_g, ate_refined=ate_r,
+        ate_refined_live=float(sb.ate(gt_xy, refined=True)),
+        improved=bool(ate_r < ate_f),
+        repairs=recs[-1].n_repairs, escalations=recs[-1].n_escalations,
+        skipped=recs[-1].n_skipped,
+        matched_mean=float(np.mean([r.n_matched for r in recs])),
+        keyframe_frames=[k.frame for k in live.keyframes],
+        loop_edges=[[i, j] for i, j, _, _ in live.loop_edges],
+        summary=summary,
+        gate3_summary=be_g.summary(refs_g),
+        solver_calls={k: len(v) for k, v in solver_ms.items()},
+        solver_ms_mean={k: (float(np.mean(v)) if v else None)
+                        for k, v in solver_ms.items()},
+        solver_ms_median={k: (float(np.median(v)) if v else None)
+                          for k, v in solver_ms.items()},
+        solver_ms_first={k: (v[0] if v else None)
+                         for k, v in solver_ms.items()},
+        solver_ms_total=float(sum(sum(v) for v in solver_ms.values())),
+        launches={k: counts_b[k] for k in ("ncc_score_map", "warp_bilinear")},
+        launches_capture_run={k: counts_a[k] for k in ("ncc_score_map",
+                                                       "warp_bilinear")},
+        jax_cpu_float32=CONFIG4_JAX_CPU)
+    log("[config4] " + json.dumps(res, default=str))
+    log(f"[config4] M=16 bench4_lap float32 [{smi}]: filter + capture "
+        f"{res['fps_capture']:.2f} frames/s, filter + live backend "
+        f"{res['fps_live']:.2f} frames/s over {len(recs)} frames; "
+        f"ate_filter {ate_f:.4f} m, ate_window_gate3 {ate_g:.4f} m, "
+        f"ate_refined {ate_r:.4f} m (JAX engine, float32 on a CPU: "
+        f"{CONFIG4_JAX_CPU['ate_filter']:.4f} / "
+        f"{CONFIG4_JAX_CPU['ate_window_gate3']:.4f} / "
+        f"{CONFIG4_JAX_CPU['ate_refined']:.4f} m); "
+        f"{summary['keyframes']} keyframes, loop edges "
+        f"{res['loop_edges']} (JAX CPU: {CONFIG4_JAX_CPU['keyframes']}, "
+        f"{CONFIG4_JAX_CPU['loop_edges']})")
+    for name, v in solver_ms.items():
+        if v:
+            log(f"[config4] {name} [{smi}]: {len(v)} calls, mean "
+                f"{np.mean(v):.3f} ms, median {np.median(v):.3f} ms, first "
+                f"{v[0]:.3f} ms, max {max(v):.3f} ms, total "
+                f"{sum(v):.1f} ms")
+
+    check_captured(captured, errs, "on a config-4 frame", cfg.max_landmarks)
+
+    problems = (launch_problems(counts_a, n_tracked, "config 4, capture run")
+                + launch_problems(counts_b, n_tracked, "config 4, live run"))
+    if len(recs) != n_tracked or len(sa.records) != n_tracked:
+        problems.append(f"{len(sa.records)} / {len(recs)} frames, wanted "
+                        f"{n_tracked}")
+    if not (np.all(np.isfinite(sb.trajectory))
+            and np.all(np.isfinite(sb.trajectory_refined))
+            and np.all(np.isfinite(sa.trajectory_refined))):
+        problems.append("non-finite poses or refined poses")
+    if not np.array_equal(sa.trajectory, sb.trajectory):
+        problems.append("the two filter runs differ")
+    problems += [f"live backend != replay: {d}"
+                 for d in backends_differ(live, be)]
+    if not np.array_equal(sa.trajectory_refined, sb.trajectory_refined):
+        problems.append("live refined trajectory != replayed one")
+    if len(sb.refinements) != len(refinements):
+        problems.append("live and replayed runs solved a different number "
+                        "of times")
+    if summary["keyframes"] < 15:
+        problems.append(f"{summary['keyframes']} keyframes < 15")
+    if summary["loop_edges"] < 1:
+        problems.append("no loop edge")
+    if not ate_r < ate_f:
+        problems.append(f"refined ATE {ate_r} not below filter ATE {ate_f}")
+    for key in ("escalations", "skipped"):
+        if res[key] > CONFIG4_JAX_CPU[key]:
+            problems.append(f"{key} {res[key]} > the JAX engine's "
+                            f"{CONFIG4_JAX_CPU[key]}")
+    if problems:
+        raise AssertionError("config-4 checks failed: " + "; ".join(problems))
+    return res
+
+
+def phase_cli(info: dict) -> dict:
+    """The command line as a user calls it, in subprocesses: no ``--device``,
+    so each must pick the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = [sys.executable, "-m", "cv_monoslam_tpu_torch"]
+
+    def call(args):
+        t0 = time.perf_counter()
+        out = subprocess.run(base + args, cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(
+                f"cli {args[0]} exited {out.returncode}: "
+                f"{out.stderr[-1500:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "out")
+        stdout, res["run_s"] = call(
+            ["run", "--frames", "8", "--backend", "--record", "--watchdog",
+             "--checkpoint", "--checkpoint-every", "4", "--chunk", "4",
+             "--out", out_dir, "--set", "max_landmarks=16",
+             "--set", "max_detections=32", "--set", "max_new_per_frame=8",
+             "--set", "keyframe_every=2"])
+        ckpt = os.path.join(out_dir, "ckpt", "ckpt_000005.npz")
+        missing = [n for n in ("RobotPath.txt", "FeaturesInfo.txt",
+                               "metrics.jsonl", "trajectory.npz",
+                               "keyframes.npz")
+                   if not os.path.exists(os.path.join(out_dir, n))]
+        if not os.path.exists(ckpt):
+            missing.append("ckpt/ckpt_000005.npz")
+        poses = np.load(os.path.join(out_dir, "trajectory.npz"))["poses"]
+        res["run_stdout"] = stdout.strip().splitlines()
+        if (missing or "ATE" not in stdout or "backend:" not in stdout
+                or poses.shape != (7, 4) or not np.isfinite(poses).all()):
+            raise AssertionError(f"cli run: missing {missing}; output "
+                                 f"{stdout[-800:]}")
+        out2 = os.path.join(tmp, "out2")
+        stdout, res["resume_s"] = call(
+            ["run", "--frames", "8", "--resume", ckpt, "--out", out2])
+        z = np.load(os.path.join(out2, "trajectory.npz"))
+        if list(z["frames"]) != [5, 6, 7] or \
+                not np.allclose(z["poses"], poses[4:], atol=1e-4):
+            raise AssertionError("cli --resume did not continue the run")
+    stdout, res["info_s"] = call(["info"])
+    if info["kind"] not in stdout or "torch:" not in stdout:
+        raise AssertionError(f"cli info does not name the card: {stdout[:300]}")
+    log("[cli] " + json.dumps(res))
+    return res
+
+
 def phase_profile(dev, config: int) -> None:
     """Where a chunk's time goes: ``torch.profiler`` over one chunk after
     the warm-up (config 1: one 32-frame chunk of the slice; config 3: after
     the two warm-up chunks one 8-frame chunk with the detection gate forced
-    shut, then one with it forced open). Prints wall ms per frame, the device's busy
+    shut, then one with it forced open; config 4: 16 frames with the live
+    backend). Prints wall ms per frame, the device's busy
     share (union of device-side intervals over the wall time), the host's
     synchronizing calls per frame and the device time per kernel name."""
     from cv_monoslam_tpu_torch import SlamConfig
@@ -721,6 +976,22 @@ def phase_profile(dev, config: int) -> None:
         sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
         sess.step_chunk(chunk)
         profile_chunk(sess, chunk, "config 1")
+    elif config == 4:
+        # two chunks of 8 with the live backend after two warm-up chunks:
+        # frames 17-32 hold three keyframes, so three window solves
+        from cv_monoslam_tpu_torch.backend.session import BackendSession
+
+        chunk = 8
+        seq, track, _, _ = fixtures.load("bench4_lap")
+        cfg = SlamConfig(**CONFIG4)
+        sess = SlamSession(cfg, seq, track, device=dev,
+                           backend=BackendSession(cfg, device=dev))
+        sess.step_chunk(chunk)
+        sess.step_chunk(chunk)
+        n0 = len(sess.refinements)
+        profile_chunk(sess, 2 * chunk, "config 4, live backend")
+        log(f"[profile] config 4: {len(sess.refinements) - n0} backend "
+            f"solves inside the profiled frames")
     else:
         chunk = 8
         sess, _ = config3_session(dev, chunk)
@@ -816,7 +1087,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after the smoke, profile a chunk")
-    ap.add_argument("--config", type=int, choices=(1, 3), default=1,
+    ap.add_argument("--config", type=int, choices=(1, 3, 4), default=1,
                     help="the configuration --profile looks at")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -838,6 +1109,8 @@ def main() -> int:
     c3 = phase_config3(dev, errs)
     rd = phase_redirect(dev)
     phase_checkpoint(dev)
+    c4 = phase_config4(dev, errs, info["smi"])
+    phase_cli(info)
     if args.profile:
         phase_profile(dev, args.config)
 
@@ -851,11 +1124,12 @@ def main() -> int:
     }
     kernels = []
     for name, mt in meta.items():
-        t32, t576 = times[name][32], times[name][576]
+        t16, t32, t576 = (times[name][m] for m in (16, 32, 576))
         k = dict(name=name, route="cuda", **mt,
                  launches=sl["launches"][name],
                  launches_config3=c3["launches"][name],
                  launches_redirect=rd["launches"][name],
+                 launches_config4=c4["launches"][name],
                  max_abs_err=errs[name],
                  ms=t32["ms"], plain_ms=t32["plain_ms"],
                  bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
@@ -866,7 +1140,9 @@ def main() -> int:
                  ms_m576=t576["ms"], plain_ms_m576=t576["plain_ms"],
                  bound_ms_m576=t576["bound_ms"],
                  bound_by_m576=t576["bound_by"],
-                 host_ms_m576=t576["host_ms"])
+                 host_ms_m576=t576["host_ms"],
+                 ms_m16=t16["ms"], plain_ms_m16=t16["plain_ms"],
+                 bound_ms_m16=t16["bound_ms"], bound_by_m16=t16["bound_by"])
         if name == "ncc_score_map":
             k.update(max_abs_err_p_hat=errs["ncc_p_hat"],
                      max_abs_err_on_own_p_hat=errs["ncc_core"])
@@ -882,6 +1158,11 @@ def main() -> int:
     log(f"[config3] M=576 D=3460, bench3_grid, float32: {c3['fps']:.2f} "
         f"frames/s over {c3['frames']} frames; ATE {c3['ate_m']:.5f} m; peak "
         f"matched {c3['peak_matched']}")
+    log(f"[config4] M=16, bench4_lap, float32: {c4['fps_capture']:.2f} "
+        f"frames/s with capture, {c4['fps_live']:.2f} with the live backend; "
+        f"ATE filter {c4['ate_filter']:.4f} m -> refined "
+        f"{c4['ate_refined']:.4f} m; {c4['summary']['keyframes']} keyframes, "
+        f"{c4['summary']['loop_edges']} loop edges")
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,14 @@ the motion predict factorizes nothing (its sync goes), and with
 sync goes too; ``detect_host_gate`` decides per chunk from telemetry the
 host already holds). Removing them (CUDA graphs
 with device-side gates) is queued in ROADMAP.md.
+
+Per-frame host side effects (``_post_frame``) read only the telemetry the
+chunk already fetched: the run recorder (``io.recording.RunRecorder``), the
+watchdog, periodic checkpoints, and the keyframe backend
+(``backend.session.BackendSession``), whose solvers run on their own device
+tensors once per keyframe and never feed back into the filter
+(``trajectory_refined`` composes their corrections afterwards). A keyframe
+costs the host one upload of the window or graph and one fetch of the solve.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ from .filter.srukf import initialize, slam_step
 from .filter.state import (FilterState, init_state, resolve_device,
                            torch_dtype)
 from .io.dataset import ImageSequence, OdometryTrack
+from .io.recording import RunRecorder
 from .utils.checkpoint import load_checkpoint, save_checkpoint
+from .utils.profiling import FrameTimer
 from .utils.watchdog import Watchdog
 
 # Telemetry packing: the per-frame outputs of slam_step are merged into ONE
@@ -100,12 +110,6 @@ class FrameRecord:
     n_skipped: int = 0
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1: the recorder and "
-        f"the backend)")
-
-
 class SlamSession:
     """One SLAM run over an image sequence + odometry track.
 
@@ -115,23 +119,27 @@ class SlamSession:
 
     def __init__(self, cfg: SlamConfig, images: ImageSequence,
                  track: OdometryTrack, max_stored: int = 64,
-                 recorder=None, checkpoint_dir: Optional[str] = None,
+                 recorder: Optional[RunRecorder] = None,
+                 checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 50,
                  watchdog: Optional[Watchdog] = None, backend=None,
                  device=None):
-        if recorder is not None:
-            raise _not_ported("the run recorder")
-        if backend is not None:
-            raise _not_ported("the BA / pose-graph backend")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.images = images
         self.track = track
         self.counter = 1                      # m_frame.counter semantics
         self.records: List[FrameRecord] = []
+        self.recorder = recorder
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.watchdog = watchdog
+        #: a ``BackendSession`` (keyframes, window BA, pose graph), or a
+        #: ``TelemetryCapture`` standing in for one
+        self.backend = backend
+        #: one dict per backend solve, in order (window BA or pose graph)
+        self.refinements: List[dict] = []
+        self.timer = FrameTimer()
         #: chunk-level detect-when-starved gating: a chunk runs the
         #: detection pipeline only when the latest match count seen is
         #: below ``min_num`` (the reference's trigger, SLAM.cpp:552-562,
@@ -158,9 +166,12 @@ class SlamSession:
         #: transport images as uint8 when lossless; decided from the first
         #: frame
         self._img_u8: Optional[bool] = None
-        odo = np.concatenate([track.xy, track.theta[:, None]], axis=1)
-        self._odo = torch.as_tensor(odo.astype(np.dtype(cfg.dtype)),
-                                    device=self.device)
+        #: odometry rows (x, y, theta) in the filter dtype: on the host for
+        #: the per-frame observers, on the device for the filter
+        self._odo_host = np.concatenate(
+            [track.xy, track.theta[:, None]], axis=1).astype(
+                np.dtype(cfg.dtype))
+        self._odo = torch.as_tensor(self._odo_host, device=self.device)
         self._redirect = np.asarray(track.redirect)
 
         state = init_state(cfg, theta0=float(track.theta[0]),
@@ -196,18 +207,53 @@ class SlamSession:
         return rec
 
     def _post_frame(self, rec: FrameRecord, tele: dict) -> None:
-        """Health checks and periodic checkpoints; single steps and chunks
-        both route every frame through here. A recovery after a chunk acts
-        on the state at the chunk's end."""
+        """Recording, health checks, periodic checkpoints, keyframes.
+
+        ``tele`` is the frame's telemetry (numpy, already on the host);
+        single steps and chunks both route every frame through here, so
+        recording stays per frame (the reference records every frame,
+        SLAM.cpp:3512-3562). A recovery after a chunk acts on the state at
+        the chunk's end."""
+        if self.recorder is not None:
+            sc = rec.pose_sqrt_cov[:2]
+            self.recorder.record_frame(
+                rec.frame,
+                odo_xy=self._odo_host[rec.frame, :2],
+                pose=rec.pose,
+                pose_cov2=np.diag(sc * sc),
+                lids=tele["lm_lid"],
+                xyz=tele["lm_xyz"],
+                valid=tele["lm_active"],
+                n_map=rec.n_map, n_visible=rec.n_visible,
+                n_matched=rec.n_matched, redirected=rec.redirected,
+                wall_time=rec.wall_time,
+            )
         if (self.watchdog is not None
                 and self.watchdog.should_check(rec.frame)):
             report = self.watchdog.check_flags(tele["health"])
             if not report.ok:
                 self.state = self.watchdog.recover(
-                    self.state, float(self._odo[rec.frame, 2]))
+                    self.state, float(self._odo_host[rec.frame, 2]))
         if (self.checkpoint_dir is not None
                 and rec.frame % self.checkpoint_every == 0):
             self.save_checkpoint()
+        if self.backend is not None:
+            n_loops = len(self.backend.loop_edges)
+            kf = self.backend.maybe_add_telemetry(
+                rec.frame, tele["pose"], self._odo_host[rec.frame],
+                tele["lm_lid"], tele["lm_matched"], tele["lm_match_px"],
+                tele["lm_xyz"], pose_sqrt_cov=tele["pose_sqrt_cov"],
+                active=tele["lm_active"])
+            if kf is not None and len(self.backend.keyframes) >= 2:
+                if len(self.backend.loop_edges) > n_loops:
+                    # a loop edge appeared: global pose-graph relaxation
+                    # (the engine's real loop closure — the analogue of the
+                    # reference's redirection splice, SLAM.cpp:948-1015)
+                    out = self.backend.optimize_graph()
+                else:
+                    out = self.backend.refine_window()
+                if out is not None:
+                    self.refinements.append(out)
 
     def save_checkpoint(self) -> str:
         path = os.path.join(self.checkpoint_dir,
@@ -231,7 +277,7 @@ class SlamSession:
         k = self.counter
         if k >= len(self.track):
             return None
-        t0 = time.perf_counter()
+        self.timer.start()
         img = self._to_device(
             self._prep_image(self.images.get(int(self.track.frame_id[k]))))
         self.state, out = slam_step(self.state, img, self._odo[k - 1],
@@ -239,7 +285,7 @@ class SlamSession:
                                     self.cfg)
         row = _pack_row(out, self.cfg.max_landmarks).cpu().numpy()
         tele = _unpack_row(row, self.cfg.max_landmarks)
-        rec = self._record(k, tele, time.perf_counter() - t0)
+        rec = self._record(k, tele, self.timer.stop())
         self.counter += 1
         self._flush_gate()
         self._last_matched = rec.n_matched
@@ -297,7 +343,7 @@ class SlamSession:
                 False, self.cfg, allow_detect=detect)
             rows.append(_pack_row(out, M))
         rows = torch.stack(rows).cpu().numpy()
-        wall = (time.perf_counter() - t0) / k
+        wall = self.timer.record(time.perf_counter() - t0, frames=k) / k
         self.counter += k
         recs = []
         for i in range(k):
@@ -321,14 +367,15 @@ class SlamSession:
         Host-gated detection (``detect_host_gate``) follows the JAX
         session's cadence chunk for chunk. That session overlaps chunk
         i + 1's device work with chunk i's telemetry fetch whenever no
-        watchdog is attached and either the gate is off or
+        watchdog and no backend is attached and either the gate is off or
         ``detect_gate_margin`` is set; the gate of chunk i + 1 then reads
         the match count at the end of chunk i - 1. Nothing is overlapped
         here (the frame loop syncs with the host anyway), but each chunk's
         detect flag is the one that cadence picks."""
         n = (len(self.track) - self.counter if n_frames is None
              else n_frames)
-        stale_gate = (self.watchdog is None and self.detect_host_gate
+        stale_gate = (self.watchdog is None and self.backend is None
+                      and self.detect_host_gate
                       and self.detect_gate_margin is not None)
         if (stale_gate and chunk > 1
                 and self.detect_gate_margin < chunk
@@ -365,12 +412,51 @@ class SlamSession:
         return np.stack([r.pose for r in self.records]) if self.records \
             else np.zeros((0, 4))
 
-    def ate(self, gt_xy: np.ndarray) -> float:
-        """RMSE of estimated vs ground-truth (x, y) per processed frame.
+    @property
+    def trajectory_refined(self) -> np.ndarray:
+        """Trajectory with backend (BA / pose-graph) keyframe corrections.
+
+        Each frame's filter pose is re-anchored to the latest refined
+        keyframe at or before it: the filter's relative motion since that
+        keyframe is composed onto the keyframe's optimized pose — the
+        engine analogue of the reference splicing loop corrections back
+        into the live state (SLAM.cpp:948-1015). Frames before the first
+        keyframe are returned unchanged. Host numpy only."""
+        traj = self.trajectory.copy()
+        if self.backend is None or not self.backend.keyframes:
+            return traj
+        kfs = sorted(self.backend.keyframes, key=lambda f: f.frame)
+        kf_frames = np.array([f.frame for f in kfs])
+        for t, rec in enumerate(self.records):
+            j = int(np.searchsorted(kf_frames, rec.frame, side="right")) - 1
+            if j < 0:
+                continue
+            kf = kfs[j]
+            # IMMUTABLE filter pose at keyframe time (pose0 is the BA
+            # anchor and gets rebased by loop corrections — composing the
+            # live filter pose against a rebased anchor double-applies
+            # the correction)
+            p0 = getattr(kf, "pose_filter", kf.pose0)
+            pr = kf.pose                      # refined pose
+            # relative SE(2) motion since the keyframe, in the kf frame
+            c0, s0 = np.cos(p0[2]), np.sin(p0[2])
+            d = rec.pose[[0, 1]] - p0[:2]
+            rel = np.array([c0 * d[0] + s0 * d[1], -s0 * d[0] + c0 * d[1]])
+            dth = rec.pose[3] - p0[2]
+            cr, sr = np.cos(pr[2]), np.sin(pr[2])
+            traj[t, 0] = pr[0] + cr * rel[0] - sr * rel[1]
+            traj[t, 1] = pr[1] + sr * rel[0] + cr * rel[1]
+            traj[t, 3] = pr[2] + dth
+        return traj
+
+    def ate(self, gt_xy: np.ndarray, refined: bool = False) -> float:
+        """RMSE of estimated vs ground-truth (x, y) per processed frame
+        (``refined``: of :attr:`trajectory_refined`).
 
         ``gt_xy`` is indexed by RAW frame id (the odometry file's image
         index), so frames dropped by the min-step filter are skipped
         consistently (SLAM.cpp:419-432)."""
         ids = [int(self.track.frame_id[r.frame]) for r in self.records]
-        err = self.trajectory[:, :2] - gt_xy[ids]
+        traj = self.trajectory_refined if refined else self.trajectory
+        err = traj[:, :2] - gt_xy[ids]
         return float(np.sqrt((err ** 2).sum(axis=1).mean()))

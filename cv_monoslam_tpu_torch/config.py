@@ -148,13 +148,18 @@ class SlamConfig:
     rho_init_mode: str = "ceiling"
 
     # ---- filter update strategy ----
-    #: "gram" = joint-Gram single-Cholesky update (default); "batched" and
-    #: "sequential" are not ported yet (they raise NotImplementedError).
+    #: "gram" = joint-Gram single-Cholesky update (default); "batched" =
+    #: single joint QR-Schur update over all matches (same posterior up to
+    #: roundoff); "sequential" = reference-faithful per-landmark 2D updates
+    #: with rank-2 downdates (see downdate_mode; a parity mode, slow).
     update_mode: str = "gram"
-    #: sequential-mode sqrt downdate: "hyperbolic" or "gmw"
+    #: sequential-mode sqrt downdate: "hyperbolic" = rank-2 rotation
+    #: downdate with PD-skip guard; "gmw" = the reference's
+    #: recompose-refactor with Gill-Murray-Wright repair (SLAM.cpp:2106-2327)
     downdate_mode: str = "hyperbolic"
     #: sqrt-factor R computation: "gram" = equilibrated CholeskyQR plus
-    #: structured Gram shortcuts (default); "householder" = Householder QR.
+    #: structured Gram shortcuts (default); "householder" = Householder QR;
+    #: "cholqr2" = CholeskyQR2.
     qr_mode: str = "gram"
     #: vision hot-loop backend: "pallas" = the hand-written CUDA kernels
     #: (ops/csrc/vision_kernels.cu; the plain torch version for CPU tensors),
@@ -177,11 +182,20 @@ class SlamConfig:
     #: compute dtype of the filter core
     dtype: str = "float32"
 
-    # ---- backend (configs 4-5; not ported yet) ----
-    ba_window: int = 8
-    ba_iters: int = 5
-    keyframe_every: int = 10
+    # ---- backend (bench config 4: backend/) ----
+    ba_window: int = 8            # sliding-window keyframe count
+    ba_iters: int = 5             # Gauss-Newton iterations per BA solve
+    keyframe_every: int = 10      # keyframe spacing (frames)
+    #: BA anchors each window pose to the filter's estimate with sigma =
+    #: inflation * filter pose sigma: a converged filter has small sigma
+    #: (strong anchor, BA is a no-op), a drifting filter has grown sigma
+    #: (the reprojection/odometry evidence takes over)
     ba_pose_prior_inflation: float = 1.0
+    #: window-BA corrections are committed only when the max pose
+    #: correction exceeds this many filter sigmas. Ships INF (never commit:
+    #: window BA solves and reports, the pose graph owns global correction).
+    #: Set a finite gate to re-enable drift-guard commits in loop-free
+    #: deployments.
     ba_apply_gate: float = float("inf")
 
     # ---- recording ----

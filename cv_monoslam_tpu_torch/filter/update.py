@@ -1,24 +1,40 @@
-"""SRUKF measurement update — the joint-Gram single-Cholesky form.
+"""SRUKF measurement update — three strategies on fixed shapes.
 
-The reference applies sequential per-landmark 2D updates followed by a
-recompose-refactor "Cholesky downdate" (SLAM.cpp:2048-2327). The default
-``update_mode="gram"`` computes the same joint posterior through the normal
-equations:
+The reference applies **sequential per-landmark 2D updates** with stale
+sigma-point reuse (SLAM.cpp:2048-2104) followed by a recompose-refactor
+"Cholesky downdate" (SLAM.cpp:2106-2327). This module offers:
 
-    Pyy = Z^T Z + R_noise (2M x 2M),  Pxy = A^T Z (D x 2M)
+``update_mode="gram"`` (default, the joint-Gram single-Cholesky form):
+    Pyy = Z^T Z + R_noise (2M x 2M),  Pxy = A^T Z (D x 2M), and ONE
+    factorization of the joint matrix [[Pyy, Pxy^T], [Pxy, G]] (G = S^T S):
+    its upper Cholesky is [[Ryy, Ryx], [0, S']], so the posterior sqrt S'
+    emerges inside one backward-stable factorization, and
+    dx = Ryx^T Ryy^-T nu. Under ``sigma_mode="implicit"`` the same joint
+    matrix is assembled from the UT-implied per-landmark linearization and
+    the motion-predicted covariance Gram (``_update_gram_implicit``): the
+    frame's only D x D factorization.
 
-and factorizes the JOINT matrix [[Pyy, Pxy^T], [Pxy, G]] (G = S^T S) once:
-its upper Cholesky is [[Ryy, Ryx], [0, S']], so the posterior sqrt S'
-emerges inside one backward-stable factorization, and dx = Ryx^T Ryy^-T nu.
-Unmatched slots get zeroed Z columns plus unit noise — exact no-ops that
-keep every shape fixed.
+``update_mode="batched"`` (joint QR-Schur, the accuracy reference):
+    One QR over the stacked innovation/state deviation matrix
 
-Under ``sigma_mode="implicit"`` the same joint matrix is assembled from the
-UT-implied per-landmark linearization and the motion-predicted covariance
-Gram (``_update_gram_implicit``): the frame's only D x D factorization.
+        M  = [[Z_masked, A], [Pad, 0]]          (2Na + 2M, 2M + D)
+        R  = qr(M) = [[Ryy, Ryx], [0, Rxx]]
+        dx = Ryx^T Ryy^-T nu_masked
+        S' = Rxx                                 exact Schur complement
 
-``update_mode`` "batched" and "sequential" are not ported yet and raise, as
-does the row-sharded joint Cholesky (``dist_chol_panel > 0``).
+``update_mode="sequential"`` (reference-faithful): per-landmark 2D gain +
+    true rank-2 hyperbolic downdate (ops.linalg.chol_downdate) in the
+    reference's slot order, reusing stale sigma deviations exactly as
+    SLAM.cpp:2063-2095 does. A reference mode, not a fast one (see
+    ``_update_sequential`` for its launch count).
+
+Unmatched slots get zeroed Z columns plus unit noise (a unit Pad row in the
+batched form) — exact no-ops that keep every shape fixed. P' = S'^T S' is
+always PSD in the batched/gram paths; the sequential path inherits the
+reference's information double-counting (that is the point of offering it).
+
+The row-sharded joint Cholesky (``dist_chol_panel > 0``) is a multi-device
+path and raises here.
 """
 
 from __future__ import annotations
@@ -26,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig
-from ..ops import gram, tri_solve
+from ..ops import chol_downdate, gmw_chol, gram, tri_solve
 from ..ops.linalg import chol_psd_flagged
 from .sigma import ut_weights
 from .state import FilterState, PredictCache, count_repairs, replace
@@ -48,6 +64,30 @@ def _deviation_blocks(state: FilterState, cache: PredictCache,
     nu = (lm.match_px - lm.pred).reshape(-1)                     # (2M,)
     nu = torch.where(cmask, nu, torch.zeros_like(nu))
     return A, Z, nu, cmask
+
+
+def _update_batched(state: FilterState, cache: PredictCache,
+                    cfg: SlamConfig) -> FilterState:
+    dtype = state.x.dtype
+    D = cfg.state_dim
+    M = cfg.max_landmarks
+    A, Z, nu, cmask = _deviation_blocks(state, cache, cfg)
+    any_match = torch.any(state.lm.matched)
+
+    pad = torch.diag(torch.where(
+        cmask, torch.full_like(nu, cfg.sigma_measure),
+        torch.ones_like(nu)).to(dtype))
+    top = torch.cat([Z, A], dim=1)
+    bot = torch.cat([pad, pad.new_zeros((2 * M, D))], dim=1)
+    R = torch.linalg.qr(torch.cat([top, bot], dim=0), mode="r")[1]
+
+    m2 = 2 * M
+    ryy, ryx, rxx = R[:m2, :m2], R[:m2, m2:], R[m2:, m2:]
+    dx = ryx.T @ tri_solve(ryy, nu, trans=True)
+
+    x_new = torch.where(any_match, state.x + dx, state.x)
+    S_new = torch.where(any_match, rxx, state.S)
+    return replace(state, x=x_new, S=S_new)
 
 
 def _update_gram(state: FilterState, cache: PredictCache,
@@ -176,8 +216,49 @@ def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
     return S_new, dx, rep
 
 
+def _update_sequential(state: FilterState, cache: PredictCache,
+                       cfg: SlamConfig) -> FilterState:
+    """Reference-faithful per-landmark loop (SLAM.cpp:2048-2104).
+
+    A Python loop over the matched slots, in slot order. Host reads: one
+    per frame (the matched mask, to pick the slots). Device launches: a
+    hyperbolic rank-2 downdate is 2 sweeps of D rotations at about 25 ops
+    each, so a frame costs about 50 * D * (number matched) launches (tens
+    of thousands at M = 32); with ``downdate_mode="gmw"`` each slot runs
+    two Grams and two D-pivot modified Choleskys instead. This mode exists
+    for parity with the reference, not for large maps."""
+    dtype = state.x.dtype
+    D = cfg.state_dim
+    w = ut_weights(D + 5, cfg)
+    lm = state.lm
+
+    A = w.wi_sr * (cache.sigma[:D, 1:] - cache.sigma[:D, :1]).T  # (2Na, D)
+    dz = w.wi_sr * (cache.sigma_pix[:, :, 1:]
+                    - cache.sigma_pix[:, :, :1])                 # (M, 2, 2Na)
+    nu_all = lm.match_px - lm.pred                               # (M, 2)
+
+    x, S = state.x, state.S
+    for m in torch.nonzero(lm.matched).flatten().tolist():
+        pxy = A.T @ dz[m].T                        # (D, 2)
+        si = lm.si[m]                              # (2, 2) upper
+        # K = Pxy (Si^T Si)^-1  via two triangular solves
+        k = tri_solve(si, tri_solve(si, pxy.T, trans=True)).T  # (D, 2)
+        x = x + k @ nu_all[m]
+        u = (k @ si.T).T                           # (2, D): U U^T = K Pyy K^T
+        if cfg.downdate_mode == "gmw":
+            # reference recompose-refactor (SLAM.cpp:2106-2327): one
+            # column at a time, Gill-Murray-Wright PD repair
+            for col in range(2):
+                S = gmw_chol(gram(S) - torch.outer(u[col], u[col]))
+        else:
+            S = chol_downdate(S, u)
+    return replace(state, x=x.to(dtype), S=S.to(dtype))
+
+
 def kalman_update(state: FilterState, cache: PredictCache,
                   cfg: SlamConfig) -> FilterState:
+    if cfg.update_mode == "batched":
+        return _update_batched(state, cache, cfg)
     if cfg.update_mode == "gram":
         if cfg.dist_chol_panel > 0:
             raise NotImplementedError(
@@ -186,8 +267,6 @@ def kalman_update(state: FilterState, cache: PredictCache,
         if cfg.sigma_mode == "implicit":
             return _update_gram_implicit(state, cache, cfg)
         return _update_gram(state, cache, cfg)
-    if cfg.update_mode in ("batched", "sequential"):
-        raise NotImplementedError(
-            f"update_mode={cfg.update_mode!r} is not ported yet "
-            f"(ROADMAP.md, Queue 1: the other update modes)")
+    if cfg.update_mode == "sequential":
+        return _update_sequential(state, cache, cfg)
     raise ValueError(f"unknown update_mode {cfg.update_mode!r}")

@@ -96,6 +96,92 @@ def image2camera(cam: CameraConfig, pix_u: torch.Tensor) -> torch.Tensor:
     return torch.stack([X, Y, torch.ones_like(X)], dim=-1)
 
 
+def project_smooth(cam: CameraConfig, hlr: torch.Tensor) -> torch.Tensor:
+    """Sentinel-free differentiable projection for the BA backend.
+
+    Same math as :func:`project` but without the visibility zeroing — the
+    (0,0) sentinel is a step discontinuity whose derivative is zero, which
+    would silently kill Gauss-Newton Jacobians. Validity is handled by the
+    caller's observation mask instead.
+
+    Differentiable by ``torch.func`` (``jacfwd`` under ``vmap``): no
+    in-place write, no host read, ``torch.where`` for both guards, the
+    Newton loop unrolled ``cam.distort_iters`` times.
+    """
+    X, Y, Z = hlr[..., 0], hlr[..., 1], hlr[..., 2]
+    safe_z = torch.where(torch.abs(Z) < 1e-9, torch.full_like(Z, 1e-9), Z)
+    u = cam.cy + cam.f2 * Y / safe_z
+    v = cam.cx + cam.f1 * X / safe_z
+    xu = (u - cam.cx) * cam.dx
+    yu = (v - cam.cy) * cam.dy
+    ru = torch.sqrt(xu * xu + yu * yu + 1e-18)
+    ru2 = ru * ru
+    rd = ru / (1.0 + cam.k1 * ru2 + cam.k2 * ru2 * ru2)
+    for _ in range(cam.distort_iters):
+        rd2 = rd * rd
+        f = rd + cam.k1 * (rd2 * rd) + cam.k2 * (rd2 * rd2 * rd) - ru
+        fp = 1.0 + 3.0 * cam.k1 * rd * rd + 5.0 * cam.k2 * (rd2 * rd2)
+        rd = rd - f / fp
+    rd2 = rd * rd
+    d = 1.0 + cam.k1 * rd2 + cam.k2 * rd2 * rd2
+    d = torch.where(d == 0.0, torch.full_like(d, 1e-13), d)
+    return torch.stack([cam.cx + (xu / d) / cam.dx,
+                        cam.cy + (yu / d) / cam.dy], dim=-1)
+
+
+def project_smooth_jvp(cam: CameraConfig, hlr: torch.Tensor,
+                       dhlr: torch.Tensor):
+    """:func:`project_smooth` with forward-mode derivatives written out.
+
+    ``dhlr`` (..., 3, K) holds K tangent directions of ``hlr`` (..., 3).
+    Returns ``(pix (..., 2), dpix (..., 2, K))``: what
+    ``torch.func.jvp`` of :func:`project_smooth` gives for each direction,
+    the unrolled Newton iterations differentiated step by step, as a fixed
+    sequence of elementwise ops on whole tensors. (``torch.func.jacfwd``
+    under ``vmap`` computes the same numbers through some 5000 dispatched
+    ops per call, hundreds of them scalar host-to-device copies.)
+    """
+    X, Y, Z = hlr[..., 0, None], hlr[..., 1, None], hlr[..., 2, None]
+    dX, dY, dZ = dhlr[..., 0, :], dhlr[..., 1, :], dhlr[..., 2, :]
+    tiny = torch.abs(Z) < 1e-9
+    sz = torch.where(tiny, torch.full_like(Z, 1e-9), Z)
+    dsz = torch.where(tiny, torch.zeros_like(dZ), dZ)
+    u = cam.cy + cam.f2 * Y / sz
+    v = cam.cx + cam.f1 * X / sz
+    du = cam.f2 * (dY / sz - Y * dsz / (sz * sz))
+    dv = cam.f1 * (dX / sz - X * dsz / (sz * sz))
+    xu = (u - cam.cx) * cam.dx
+    yu = (v - cam.cy) * cam.dy
+    dxu = du * cam.dx
+    dyu = dv * cam.dy
+    ru = torch.sqrt(xu * xu + yu * yu + 1e-18)
+    dru = (xu * dxu + yu * dyu) / ru
+    ru2 = ru * ru
+    den = 1.0 + cam.k1 * ru2 + cam.k2 * ru2 * ru2
+    dden = (2.0 * cam.k1 * ru + 4.0 * cam.k2 * (ru2 * ru)) * dru
+    rd = ru / den
+    drd = dru / den - ru * dden / (den * den)
+    for _ in range(cam.distort_iters):
+        rd2 = rd * rd
+        f = rd + cam.k1 * (rd2 * rd) + cam.k2 * (rd2 * rd2 * rd) - ru
+        fp = 1.0 + 3.0 * cam.k1 * rd * rd + 5.0 * cam.k2 * (rd2 * rd2)
+        df = fp * drd - dru
+        dfp = (6.0 * cam.k1 * rd + 20.0 * cam.k2 * (rd2 * rd)) * drd
+        drd = drd - (df / fp - f * dfp / (fp * fp))
+        rd = rd - f / fp
+    rd2 = rd * rd
+    d = 1.0 + cam.k1 * rd2 + cam.k2 * rd2 * rd2
+    dd = (2.0 * cam.k1 * rd + 4.0 * cam.k2 * (rd2 * rd)) * drd
+    flat = d == 0.0
+    d = torch.where(flat, torch.full_like(d, 1e-13), d)
+    dd = torch.where(flat, torch.zeros_like(dd), dd)
+    pix = torch.cat([cam.cx + (xu / d) / cam.dx,
+                     cam.cy + (yu / d) / cam.dy], dim=-1)
+    dpix = torch.stack([(dxu / d - xu * dd / (d * d)) / cam.dx,
+                        (dyu / d - yu * dd / (d * d)) / cam.dy], dim=-2)
+    return pix, dpix
+
+
 def project(cam: CameraConfig, hlr: torch.Tensor,
             err: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Camera-frame point -> distorted pixel, with sentinel propagation.

@@ -75,3 +75,46 @@ def inverse_depth_to_cartesian(feat6: torch.Tensor) -> torch.Tensor:
     anchor = feat6[..., 0:3]
     theta, phi, rho = feat6[..., 3], feat6[..., 4], feat6[..., 5]
     return anchor + ray_from_angles(theta, phi) / _safe_rho(rho)[..., None]
+
+
+def cartesian_jacobian(feat6: torch.Tensor) -> torch.Tensor:
+    """d(xyz)/d(feat6) analytic Jacobian, (..., 3, 6) (SLAM.cpp:2743-2748)."""
+    theta, phi, rho = feat6[..., 3], feat6[..., 4], feat6[..., 5]
+    r = _safe_rho(rho)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    r2 = r * r
+    eye = torch.eye(3, dtype=feat6.dtype, device=feat6.device).expand(
+        *theta.shape, 3, 3)
+    dang = torch.stack(
+        [
+            torch.stack([cp * ct / r, -sp * st / r, -cp * st / r2], dim=-1),
+            torch.stack([torch.zeros_like(r), -cp / r, sp / r2], dim=-1),
+            torch.stack([-cp * st / r, -sp * ct / r, -cp * ct / r2], dim=-1),
+        ],
+        dim=-2,
+    )
+    return torch.cat([eye, dang], dim=-1)
+
+
+def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation -> quaternion (w, x, y, z), branch-free (reference:
+    SLAM.cpp:2903-2948 uses the max-trace branch ladder)."""
+    m01, m02 = R[..., 0, 1], R[..., 0, 2]
+    m10, m12 = R[..., 1, 0], R[..., 1, 2]
+    m20, m21 = R[..., 2, 0], R[..., 2, 1]
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    qw = 0.5 * torch.sqrt(torch.clamp(1.0 + tr, min=1e-12))
+    denom = torch.where(qw < 1e-6, torch.ones_like(qw), 4.0 * qw)
+    qx = (m21 - m12) / denom
+    qy = (m02 - m20) / denom
+    qz = (m10 - m01) / denom
+    return torch.stack([qw, qx, qy, qz], dim=-1)
+
+
+def covariance_ellipsoid(cov3: torch.Tensor):
+    """1-sigma ellipsoid axes + orientation quaternion from a 3x3 covariance
+    (SLAM.cpp:2791-2802, 2815-2948). Returns (sigma (...,3), quat (...,4))."""
+    w, v = torch.linalg.eigh(cov3)
+    sigma = torch.sqrt(torch.clamp(w, min=0.0))
+    return sigma, rotation_to_quaternion(v)

@@ -205,3 +205,112 @@ def test_chol2x2_upper_inverts_gram():
     torch.testing.assert_close(s.transpose(-1, -2) @ s, g, rtol=1e-12,
                                atol=1e-12)
     assert float(s[:, 1, 0].abs().max()) == 0.0
+
+
+# -- the other update modes, on the cases of tests/test_sigma_update.py ----------
+
+UCFG = dict(max_landmarks=4, dtype="float64")
+
+
+def _update_case(matched_slots, seed, s_scale=0.1):
+    """A synthetic sigma cloud with a linear pixel map per slot, as
+    ``tests/test_sigma_update.py::make_cache`` builds it; numpy arrays."""
+    from cv_monoslam_tpu.filter.sigma import generate_sigma, ut_weights
+
+    cfg = JaxConfig(**UCFG)
+    rng = np.random.default_rng(seed)
+    D, M = cfg.state_dim, cfg.max_landmarks
+    na = D + 5
+    S0 = np.linalg.qr(rng.normal(size=(D, D)) * s_scale)[1]
+    x0 = rng.normal(size=D)
+    w = ut_weights(na, cfg)
+    S_aug = np.zeros((na, na))
+    S_aug[:D, :D] = S0
+    S_aug[D:D + 3, D:D + 3] = np.eye(3) * 0.01
+    sig = np.asarray(generate_sigma(
+        jnp.asarray(np.concatenate([x0, np.zeros(5)])), jnp.asarray(S_aug),
+        w.gamma))
+    Hs = rng.normal(size=(M, 2, D)) * 0.5
+    pix = np.einsum("mij,js->mis", Hs, sig[:D])
+    pred = pix @ np.asarray(w.mean_weights(jnp.float64))
+    matched = np.zeros(M, bool)
+    matched[matched_slots] = True
+    z = pred + rng.normal(size=pred.shape) * 0.5
+    # the innovation sqrt factors the sequential mode reads (upper 2 x 2)
+    dz = w.wi_sr * (pix[:, :, 1:] - pix[:, :, :1])
+    pyy = np.einsum("mis,mjs->mij", dz, dz) + \
+        cfg.sigma_measure ** 2 * np.eye(2)
+    si = np.stack([np.linalg.cholesky(p).T for p in pyy])
+    return dict(x=x0, S=S0, sigma=sig, pix=pix, pred=pred, z=z,
+                matched=matched, si=si)
+
+
+def _run_update(case, **mode):
+    jcfg, tcfg = JaxConfig(**UCFG, **mode), SlamConfig(**UCFG, **mode)
+    js = jstate.init_state(jcfg)
+    js = jstate.replace(
+        js, x=jnp.asarray(case["x"]), S=jnp.asarray(case["S"]),
+        lm=jstate.replace(
+            js.lm, matched=jnp.asarray(case["matched"]),
+            active=jnp.ones(4, bool), pred=jnp.asarray(case["pred"]),
+            match_px=jnp.asarray(case["z"]), si=jnp.asarray(case["si"])))
+    jc = jstate.PredictCache(sigma=jnp.asarray(case["sigma"]),
+                             sigma_pix=jnp.asarray(case["pix"]),
+                             pred=jnp.asarray(case["pred"]))
+    want = j_kalman_update(js, jc, jcfg)
+    got = kalman_update(_carry(js), _cache(jc), tcfg)
+    return got, want
+
+
+@pytest.mark.parametrize("mode", [
+    dict(update_mode="batched"),
+    dict(update_mode="sequential"),
+    dict(update_mode="sequential", downdate_mode="gmw")],
+    ids=["batched", "sequential", "sequential-gmw"])
+@pytest.mark.parametrize("slots", [[0, 2], [1], []],
+                         ids=["two", "one", "none"])
+def test_kalman_update_other_modes_match_jax(mode, slots):
+    """float64, 1e-8: the state, and the factor through S^T S and |S|
+    (a QR's R is unique up to row signs)."""
+    case = _update_case(slots, seed=3 + len(slots))
+    got, want = _run_update(case, **mode)
+    g, w = state_to_arrays(got), state_to_arrays(want)
+    np.testing.assert_allclose(g["x"], w["x"], rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(g["S"].T @ g["S"], w["S"].T @ w["S"],
+                               rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(np.abs(g["S"]), np.abs(w["S"]), rtol=1e-7,
+                               atol=1e-8)
+    if not slots:                      # no match: an exact no-op
+        np.testing.assert_array_equal(g["x"], case["x"])
+        np.testing.assert_array_equal(g["S"], case["S"])
+    for k in ("x", "S"):
+        g[k] = w[k]
+    _assert_arrays_close(g, w)
+
+
+def test_batched_update_matches_dense_conditional():
+    """The joint QR-Schur result is the dense conditional Gaussian, and
+    corrupting an unmatched slot's deviations changes nothing."""
+    from cv_monoslam_tpu.filter.sigma import ut_weights
+
+    case = _update_case([0, 2], seed=11)
+    got, _ = _run_update(case, update_mode="batched")
+    cfg = JaxConfig(**UCFG)
+    D = cfg.state_dim
+    w = ut_weights(D + 5, cfg)
+    A = w.wi_sr * (case["sigma"][:D, 1:] - case["sigma"][:D, :1]).T
+    rows = [0, 1, 4, 5]
+    pix = case["pix"].reshape(8, -1)
+    Z = w.wi_sr * (pix[rows, 1:] - pix[rows, :1]).T
+    Pyy = Z.T @ Z + cfg.sigma_measure ** 2 * np.eye(4)
+    K = (A.T @ Z) @ np.linalg.inv(Pyy)
+    nu = (case["z"] - case["pred"])[[0, 2]].reshape(-1)
+    np.testing.assert_allclose(got.x.numpy(), case["x"] + K @ nu, atol=1e-8)
+    P = got.S.numpy().T @ got.S.numpy()
+    np.testing.assert_allclose(P, A.T @ A - K @ Pyy @ K.T, atol=1e-8)
+    assert np.linalg.eigvalsh(P).min() > -1e-10
+    bad = dict(case, pix=case["pix"].copy())
+    bad["pix"][1] += 1000.0
+    bad["pix"][3] -= 777.0
+    got2, _ = _run_update(bad, update_mode="batched")
+    np.testing.assert_allclose(got2.x.numpy(), got.x.numpy(), atol=1e-8)

@@ -45,7 +45,7 @@ def test_cholqr_matches_jax():
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("mode", ["gram", "householder"])
+@pytest.mark.parametrize("mode", ["gram", "householder", "cholqr2"])
 def test_qr_r_matches_jax(mode):
     a = _tall(50, 10, 2)
     got = tops.qr_r(torch.as_tensor(a), mode).numpy()
@@ -99,3 +99,76 @@ def test_chol_psd_flagged_levels_match_jax(lam_min, level, finite):
         # NaN on and above the diagonal, 0 below, in both
         np.testing.assert_array_equal(np.isnan(r), np.isnan(jr))
         np.testing.assert_array_equal(np.nan_to_num(r), np.nan_to_num(jr))
+
+
+def test_cholqr2_matches_jax_and_restores_orthogonality():
+    a = _tall(80, 16, 5) * np.logspace(0, -4, 16)     # condition ~1e4
+    got = tla.cholqr2(torch.as_tensor(a)).numpy()
+    want = np.asarray(jla.cholqr2(jnp.asarray(a)))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    q = a @ np.linalg.inv(got)
+    assert np.abs(q.T @ q - np.eye(16)).max() < 1e-12
+    assert np.allclose(np.tril(got, -1), 0.0)
+
+
+@pytest.mark.parametrize("n", [40, 130])
+def test_tri_inv_upper_matches_jax(n):
+    """Base 32: n = 40 splits once, n = 130 three times (odd halves)."""
+    rng = np.random.default_rng(6)
+    r = np.triu(rng.normal(size=(n, n))) + 4 * np.eye(n)
+    got = tla.tri_inv_upper(torch.as_tensor(r), base=32).numpy()
+    want = np.asarray(jla.tri_inv_upper(jnp.asarray(r), base=32))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    assert np.abs(got @ r - np.eye(n)).max() < 1e-10
+    assert np.array_equal(np.tril(got, -1), np.zeros((n, n)))
+
+
+@pytest.mark.parametrize("lam_min", [0.2, -0.5])
+def test_gmw_chol_matches_jax(lam_min):
+    """A PD matrix comes out as its Cholesky factor; an indefinite one as
+    the factor of A + E with the JAX package's pivot floors."""
+    a = _spd(8, np.linspace(lam_min, 2.0, 8), seed=7)
+    got = tla.gmw_chol(torch.as_tensor(a)).numpy()
+    want = np.asarray(jla.gmw_chol(jnp.asarray(a)))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+    assert np.isfinite(got).all() and np.allclose(np.tril(got, -1), 0.0)
+    e = got.T @ got - a
+    if lam_min > 0:
+        assert np.abs(e).max() < 1e-12
+    else:
+        assert np.abs(e - np.diag(np.diag(e))).max() < 1e-10   # E diagonal
+        assert np.diag(e).min() > -1e-12 and np.diag(e).max() > 0.1
+
+
+@pytest.mark.parametrize("rank", [1, 2])
+def test_chol_update_and_downdate_match_jax(rank):
+    rng = np.random.default_rng(8)
+    r = np.linalg.qr(rng.normal(size=(20, 8)))[1]
+    u = rng.normal(size=(rank, 8)) * 0.3
+    if rank == 1:
+        u = u[0]                                   # a vector is accepted
+    up = tla.chol_update(torch.as_tensor(r), torch.as_tensor(u)).numpy()
+    np.testing.assert_allclose(
+        up, np.asarray(jla.chol_update(jnp.asarray(r), jnp.asarray(u))),
+        rtol=1e-10, atol=1e-12)
+    uu = np.atleast_2d(u)
+    np.testing.assert_allclose(up.T @ up, r.T @ r + uu.T @ uu, rtol=1e-10,
+                               atol=1e-12)
+    down = tla.chol_downdate(torch.as_tensor(up), torch.as_tensor(u)).numpy()
+    np.testing.assert_allclose(
+        down, np.asarray(jla.chol_downdate(jnp.asarray(up), jnp.asarray(u))),
+        rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(down.T @ down, r.T @ r, rtol=1e-9, atol=1e-11)
+
+
+def test_failing_chol_downdate_is_clamped_as_in_jax():
+    """A downdate that would lose positive definiteness skips the pivots
+    it cannot take: finite, upper triangular, and JAX's result."""
+    rng = np.random.default_rng(9)
+    r = np.linalg.qr(rng.normal(size=(20, 8)))[1]
+    u = rng.normal(size=(2, 8)) * 6.0
+    got = tla.chol_downdate(torch.as_tensor(r), torch.as_tensor(u)).numpy()
+    want = np.asarray(jla.chol_downdate(jnp.asarray(r), jnp.asarray(u)))
+    assert np.isfinite(got).all() and np.allclose(np.tril(got, -1), 0.0)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-10)
+    assert np.abs(got.T @ got - (r.T @ r - u.T @ u)).max() > 1e-3  # clamped
