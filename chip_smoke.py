@@ -67,7 +67,29 @@ non-zero and prints no result):
    watchdog, backend and checkpoints on an 8-frame synthetic sequence, a
    second run resumed from its checkpoint, and ``info``; checks the exit
    codes, the files written and that ``info`` names the card;
-10. one ``{"kernels": [...]}`` line, and as the last line
+10. the multi-device paths (``cv_monoslam_tpu_torch/parallel/``) at world
+   size 1: an NCCL process group in this process and its mesh, then (b)
+   phase 5's config-3 run again with ``dist_chol_panel=64`` under
+   ``set_mesh`` (phase 5's checks, each kernel once per frame, and the
+   distributed factorization once per frame), (a) that factorization alone
+   on a joint matrix captured from (b) (n = 4612, padded to 4672, panel 64,
+   float32) against ``cholesky_ex`` of the same matrix: backward error
+   ``|R^T R - A| / |A|`` <= 1e-5 and <= 4x the library's, forward error
+   against the float64 factor <= 4x the library's, device time per
+   factorization beside ``cholesky_ex``'s; (c) ``ba_solve_sharded`` on the
+   config-5 problem (W = 8, L = 32768, 4 iterations, float64) against
+   ``ba_solve``, poses and landmarks to 1e-9, ms per iteration of both;
+   (d) the landmark-layout step on 8 frames of config 1, bit for bit the
+   single-device step, with both kernels launched by the sharded path;
+   (e) the same 8 frames on four spawned ranks sharing the card through
+   ``gloo`` (NCCL refuses two ranks on one card; ``gloo`` moves CUDA
+   tensors through the host), 8 slots and both kernels per rank, held against
+   (d)'s single-process run: discrete fields equal, poses to 1e-5;
+   (b64) a second witness to (b)'s ATE: the same frames through the
+   distributed factorization in float64 (plain vision versions: the
+   kernels take float32), 64 finite frames, ATE and 1e-3-rung count printed
+   beside (b)'s, not gated;
+11. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -111,6 +133,12 @@ CONFIG3_JAX_CPU = dict(escalations=0, skipped=0, repairs=59, peak_map=576,
 #: a CPU alike (``PYTHONPATH=. python tests/test_torch_redirect.py``): map
 #: size after the branch, landmarks back with is_loop, stored records left
 REDIRECT_JAX_CPU = dict(n_map=5, n_loop=5, stored_valid=4)
+#: config 5 of ``bench.py``: the window-BA problem of
+#: ``scripts/bench_scaling.py:64-104`` (float64)
+CONFIG5 = dict(W=8, L=32768, iters=4)
+#: phase 10 (a) factorizes the joint matrix of this call of phase 10 (b)'s
+#: distributed factorization: a frame with the map full
+KEPT_CALL = 48
 #: config 4 of ``bench.py`` (``bench_backend``)
 CONFIG4 = dict(max_landmarks=16, max_new_per_frame=4, max_detections=32,
                keyframe_every=5, ba_window=4)
@@ -562,17 +590,17 @@ def phase_slice(dev, errs: dict) -> dict:
     return res
 
 
-def config3_session(dev, chunk: int = 8):
+def config3_session(dev, chunk: int, **extra):
     """A config-3 session warmed up as ``bench.py`` warms it: a detect chunk,
     then a chunk with the gate forced shut (so both variants have run), then
     the gate opened to the telemetry and set to the one-chunk-stale
-    cadence."""
+    cadence. ``extra`` overrides config fields."""
     from cv_monoslam_tpu_torch import SlamConfig
     from cv_monoslam_tpu_torch.api import SlamSession
     from cv_monoslam_tpu_torch.io import fixtures
 
     seq, track, gt_xy, _ = fixtures.load("bench3_grid", min_step_xy=0.005)
-    cfg = SlamConfig(**CONFIG3)
+    cfg = SlamConfig(**CONFIG3, **extra)
     sess = SlamSession(cfg, seq, track, device=dev)
     sess.detect_host_gate = True
     sess.step_chunk(chunk)
@@ -583,13 +611,16 @@ def config3_session(dev, chunk: int = 8):
     return sess, gt_xy
 
 
-def phase_config3(dev, errs: dict) -> dict:
+def phase_config3(dev, errs: dict, tag: str = "config3",
+                  **extra) -> dict:
+    """Config 3 at full width; ``extra`` overrides config fields (the
+    multi-device phase runs it with ``dist_chol_panel`` under a mesh)."""
     chunk, n_timed = 8, 64
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t_setup = time.perf_counter()
-    sess, gt_xy = config3_session(dev, chunk)
+    sess, gt_xy = config3_session(dev, chunk, **extra)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_setup
     n0 = len(sess.records)
@@ -621,9 +652,9 @@ def phase_config3(dev, errs: dict) -> dict:
         launches={k: counts[k] for k in ("ncc_score_map", "warp_bilinear")},
         plain_normalizations=counts["plain_normalizations"],
         n_matched=[r.n_matched for r in recs],
-        jax_cpu_float32=CONFIG3_JAX_CPU)
-    log("[config3] " + json.dumps(res))
-    log(f"[config3] M=576 D=3460 bench3_grid float32: {res['fps']:.2f} "
+        jax_cpu_float32=CONFIG3_JAX_CPU, **extra)
+    log(f"[{tag}] " + json.dumps(res))
+    log(f"[{tag}] M=576 D=3460 bench3_grid float32: {res['fps']:.2f} "
         f"frames/s, {res['ms_per_frame']:.2f} ms/frame over {done} frames; "
         f"peak map {res['peak_map']}, peak matched {res['peak_matched']}; "
         f"ATE {res['ate_m']:.5f} m; repairs {res['repairs']} minor / "
@@ -649,7 +680,7 @@ def phase_config3(dev, errs: dict) -> dict:
             problems.append(f"{key} {res[key]} > the JAX engine's "
                             f"{CONFIG3_JAX_CPU[key]}")
     if problems:
-        raise AssertionError("config-3 checks failed: " + "; ".join(problems))
+        raise AssertionError(f"{tag} checks failed: " + "; ".join(problems))
     return res
 
 
@@ -958,6 +989,412 @@ def phase_cli(info: dict) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def counted_dist_chol():
+    """While active, count the calls of the distributed factorization
+    (``parallel.dist_chol.chol_rowsharded_padded``, which the filter's
+    joint update imports at each call) and those whose factor is not finite
+    (each sends its frame to the 1e-3 rung, ``update._dist_joint_chol``;
+    read on the host only at the end), and keep a copy of the matrix of
+    call :data:`KEPT_CALL`."""
+    from cv_monoslam_tpu_torch.parallel import dist_chol
+
+    seen = {"calls": 0, "kept": None, "finite": []}
+    real = dist_chol.chol_rowsharded_padded
+
+    def counted(A, mesh, panel=64):
+        seen["calls"] += 1
+        if seen["calls"] == KEPT_CALL:
+            seen["kept"] = A.clone()
+        r = real(A, mesh, panel)
+        seen["finite"].append(torch.isfinite(r).all())
+        return r
+
+    dist_chol.chol_rowsharded_padded = counted
+    try:
+        yield seen
+    finally:
+        dist_chol.chol_rowsharded_padded = real
+        seen["not_finite"] = sum(not bool(f) for f in seen.pop("finite"))
+
+
+def config5_problem(dev):
+    """``scripts/bench_scaling.py``'s config-5 window-BA problem (W = 8
+    keyframes, L = 32768 ceiling landmarks, float64), made with numpy from
+    seed 0 and the port's ``project_planar`` on the card."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.backend.ba import BAProblem, project_planar
+
+    W, L = CONFIG5["W"], CONFIG5["L"]
+    rng = np.random.default_rng(0)
+    cfg = SlamConfig(dtype="float64")
+    poses_gt = np.stack([0.05 * np.arange(W), 0.01 * np.arange(W),
+                         0.02 * np.arange(W)], axis=1)
+    lms = np.stack([rng.uniform(-0.8, 1.2, L), rng.uniform(-0.6, 0.8, L),
+                    np.full(L, 3.0)], axis=1)
+    obs = project_planar(torch.as_tensor(poses_gt, device=dev)[:, None],
+                         torch.as_tensor(lms, device=dev)[None],
+                         cfg).cpu().numpy()
+    mask = ((obs[..., 0] > 20) & (obs[..., 0] < 620)
+            & (obs[..., 1] > 20) & (obs[..., 1] < 460))
+    obs = obs + rng.normal(0, 0.3, obs.shape)
+    odo_rel = np.zeros((W - 1, 3))
+    for w in range(W - 1):
+        c, s = np.cos(poses_gt[w, 2]), np.sin(poses_gt[w, 2])
+        d = poses_gt[w + 1, :2] - poses_gt[w, :2]
+        odo_rel[w] = [c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                      poses_gt[w + 1, 2] - poses_gt[w, 2]]
+    poses0 = poses_gt + rng.normal(0, 0.01, poses_gt.shape)
+    poses0[0] = poses_gt[0]
+    landmarks = lms + rng.normal(0, 0.01, lms.shape)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    prob = BAProblem(poses=t(poses0), landmarks=t(landmarks), obs=t(obs),
+                     obs_mask=t(mask), odo_rel=t(odo_rel),
+                     kf_mask=t(np.ones(W, bool)),
+                     lm_mask=t(mask.sum(0) >= 2), prior_poses=t(poses0),
+                     prior_iw=t(np.full((W, 3), 1e-6)))
+    return prob, cfg
+
+
+def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
+    """(a) The distributed factorization of a captured config-3 joint
+    matrix against ``cholesky_ex`` of the same matrix, and both times."""
+    from cv_monoslam_tpu_torch.parallel.dist_chol import \
+        chol_rowsharded_padded
+
+    A = 0.5 * (A + A.T)                  # both factorizations get this A
+    n, panel = A.shape[0], 64
+    r_dist = chol_rowsharded_padded(A, mesh, panel)
+    r_lib, info = torch.linalg.cholesky_ex(A, upper=True)
+    r_64 = torch.linalg.cholesky(A.double(), upper=True)
+    a_norm = float(torch.linalg.norm(A.double()))
+
+    def backward(r):
+        r = r.double()
+        return float(torch.linalg.norm(r.T @ r - A.double())) / a_norm
+
+    res = dict(n=n, n_padded=-(-n // panel) * panel, panel=panel,
+               library_info=int(info),
+               max_abs_diff=float((r_dist - r_lib).abs().max()),
+               backward_err=backward(r_dist),
+               backward_err_library=backward(r_lib),
+               forward_err=float((r_dist.double() - r_64).abs().max()),
+               forward_err_library=float((r_lib.double() - r_64).abs()
+                                         .max()),
+               lower_max=float(torch.tril(r_dist, -1).abs().max()))
+    # the host paces the distributed factorization (thousands of launches
+    # and 3 collectives per panel), so CUDA events around it time the host:
+    # its cost is the synchronized wall time, and its device work the busy
+    # time of a profiled call; cholesky_ex is device-paced (time_ms)
+    res["ms"], res["device_busy_ms"], res["device_ops"] = wall_and_busy_ms(
+        lambda: chol_rowsharded_padded(A, mesh, panel))
+    sets = [(A + (1e-6 * k) * torch.eye(n, device=A.device),)
+            for k in range(1, 5)]
+    res["library_ms"], _ = time_ms(
+        lambda a: torch.linalg.cholesky_ex(a, upper=True), sets)
+    res["library_wall_ms"], res["library_busy_ms"], _ = wall_and_busy_ms(
+        lambda: torch.linalg.cholesky_ex(A, upper=True))
+    n_pad = res["n_padded"]
+    res["bound"] = _bound(8 * n_pad * n_pad, n_pad ** 3 // 3)
+    log("[multidevice] (a) dist_chol " + json.dumps(res))
+    log(f"[multidevice] (a) [{smi}] n={n} (padded {n_pad}), panel {panel}, "
+        f"1 rank: {res['ms']:.3f} ms wall ({res['device_busy_ms']:.3f} ms "
+        f"device-busy, {res['device_ops']} device ops) per factorization vs "
+        f"cholesky_ex {res['library_ms']:.3f} ms (wall "
+        f"{res['library_wall_ms']:.3f} ms); "
+        f"max|R_dist-R_lib|={res['max_abs_diff']:.3e}, "
+        f"|R^T R-A|/|A|={res['backward_err']:.3e} (library "
+        f"{res['backward_err_library']:.3e}), max|R-R_f64|="
+        f"{res['forward_err']:.3e} (library "
+        f"{res['forward_err_library']:.3e})")
+    # limits: both factors are backward-stable float32 factorizations of
+    # the same matrix, so the distributed one may be no more than 4x
+    # farther from A (backward) and from the float64 factor (forward, the
+    # matrix's conditioning sets the scale) than the library's, and the
+    # backward error itself stays at float32 roundoff (1e-5)
+    problems = []
+    if not (res["backward_err"] <= 1e-5 and res["backward_err"]
+            <= 4 * res["backward_err_library"] + 1e-7):
+        problems.append(f"backward error {res['backward_err']}")
+    if not res["forward_err"] <= 4 * res["forward_err_library"] + 1e-6:
+        problems.append(f"forward error {res['forward_err']}")
+    if res["lower_max"] != 0.0 or res["library_info"] != 0:
+        problems.append("not upper triangular, or the library failed")
+    if problems:
+        raise AssertionError("dist_chol checks failed: "
+                             + "; ".join(problems))
+    return res
+
+
+def md_ba(mesh, dev, smi: str) -> dict:
+    """(c) ``ba_solve_sharded`` on the config-5 problem against the port's
+    ``ba_solve`` on the card: poses to 1e-9, ms per iteration of each."""
+    from cv_monoslam_tpu_torch.backend.ba import ba_solve
+    from cv_monoslam_tpu_torch.parallel.dist_ba import (ba_solve_sharded,
+                                                        gather_landmarks)
+
+    iters = CONFIG5["iters"]
+    prob, cfg = config5_problem(dev)
+
+    def single():
+        return ba_solve(prob, cfg, iters=iters)
+
+    def sharded():
+        return ba_solve_sharded(prob, cfg, mesh, iters=iters)
+
+    p1, l1, c1 = single()
+    ps, ls, cs = sharded()
+    lms = gather_landmarks(ls, mesh)
+    # host-paced: synchronized wall time, and a profiled call's busy time
+    ms_single, busy_single, _ = wall_and_busy_ms(single, reps=3)
+    ms_sharded, busy_sharded, _ = wall_and_busy_ms(sharded, reps=3)
+    ms_single, busy_single, ms_sharded, busy_sharded = (
+        v / iters for v in (ms_single, busy_single, ms_sharded,
+                            busy_sharded))
+    res = dict(W=CONFIG5["W"], L=CONFIG5["L"], iters=iters,
+               observed=int(prob.obs_mask.sum()),
+               active_landmarks=int(prob.lm_mask.sum()),
+               max_pose_diff=float((ps - p1).abs().max()),
+               max_landmark_diff=float((lms - l1).abs().max()),
+               cost_first=float(cs[0]), cost_last=float(cs[-1]),
+               cost_last_single=float(c1[-1]),
+               ms_per_iter_sharded=ms_sharded, ms_per_iter_single=ms_single,
+               busy_ms_per_iter_sharded=busy_sharded,
+               busy_ms_per_iter_single=busy_single)
+    log("[multidevice] (c) dist_ba " + json.dumps(res))
+    log(f"[multidevice] (c) [{smi}] W={res['W']} L={res['L']} float64, 1 "
+        f"rank: ba_solve_sharded {ms_sharded:.3f} ms/iteration "
+        f"({busy_sharded:.3f} device-busy), ba_solve {ms_single:.3f} "
+        f"ms/iteration ({busy_single:.3f} device-busy); max|pose diff| "
+        f"{res['max_pose_diff']:.3e}")
+    close = (torch.allclose(ps, p1, rtol=1e-9, atol=1e-11)
+             and torch.allclose(lms, l1, rtol=1e-9, atol=1e-11))
+    if not (close and bool(torch.isfinite(cs).all())
+            and res["cost_last"] < res["cost_first"]):
+        raise AssertionError("dist_ba checks failed")
+    return res
+
+
+def config1_track(dev, frames: int):
+    """Config 1 on bench1_arc as a session prepares it: the state after
+    frame 0, frames 0 .. frames-1 in the filter dtype, odometry, flags."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    cfg = SlamConfig(**CONFIG1)
+    sess = SlamSession(cfg, seq, track, device=dev)
+    images = torch.stack([
+        sess._to_device(sess._prep_image(seq.get(int(track.frame_id[k]))))
+        for k in range(frames)])
+    return (cfg, sess.state, images, sess._odo[:frames],
+            torch.as_tensor(sess._redirect[:frames]))
+
+
+def md_landmark_step(mesh, dev) -> dict:
+    """(d) The landmark-layout step on 8 frames of config 1 at world size
+    1: bit for bit the single-device step, both kernels launched by the
+    sharded path once per frame."""
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+    from cv_monoslam_tpu_torch.filter.srukf import slam_step
+    from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
+    from cv_monoslam_tpu_torch.parallel.spmd import run_frames
+
+    frames = 8
+    cfg, state0, images, odo, redirect = config1_track(dev, frames)
+    state = state0
+    poses = []
+    for k in range(1, frames):
+        state, out = slam_step(state, images[k], odo[k - 1], odo[k],
+                               bool(redirect[k]), cfg)
+        poses.append(out["pose"])
+    torch.cuda.synchronize()
+    reset_counters()
+    st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
+                          state_shardings(mesh, cfg))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    want, got = state_to_arrays(state), state_to_arrays(st)
+    unequal = [k for k in want
+               if not np.array_equal(want[k], got[k], equal_nan=True)]
+    if not torch.equal(torch.stack(poses), outs["pose"]):
+        unequal.append("per-frame poses")
+    res = dict(frames=frames - 1, unequal=unequal,
+               n_matched=outs["n_matched"].tolist(),
+               launches={k: counts[k] for k in ("ncc_score_map",
+                                                "warp_bilinear")},
+               plain_normalizations=counts["plain_normalizations"])
+    log("[multidevice] (d) landmark-layout step " + json.dumps(res))
+    problems = launch_problems(counts, frames - 1,
+                               "the landmark-layout step")
+    if unequal:
+        problems.append(f"differs from the single-device step in {unequal}")
+    if problems:
+        raise AssertionError("landmark-layout checks failed: "
+                             + "; ".join(problems))
+    res["single"] = dict(pose=torch.stack(poses).cpu().numpy(),
+                         **{k: want[f"lm.{k}"] for k in
+                            ("active", "matched", "lid")})
+    res["inputs"] = (cfg, state0, images, odo, redirect)
+    return res
+
+
+def _landmark_rank(dev, state0, images, odo, redirect, cfg):
+    """One of (e)'s four ranks (spawned): config 1's frames in the landmark
+    layout over a ``gloo`` group whose ranks share the card; returns the
+    poses, the final table's discrete fields, the kernel launch counts and
+    the slot count the kernels saw."""
+    from cv_monoslam_tpu_torch.parallel.launch import to_device
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, state_shardings
+    from cv_monoslam_tpu_torch.parallel.spmd import run_frames
+
+    mesh = make_mesh(device=dev)
+    state0, images, odo, redirect = to_device(
+        (state0, images, odo, redirect), dev)
+    reset_counters()
+    with captured_kernel_inputs(n=1) as captured:
+        st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
+                              state_shardings(mesh, cfg))
+    torch.cuda.synchronize()
+    return dict(pose=outs["pose"], active=st.lm.active,
+                matched=st.lm.matched, lid=st.lm.lid,
+                counts=read_counters(),
+                slots=int(captured["ncc"][0][0].shape[0]))
+
+
+def md_four_ranks(d: dict, smi: str) -> dict:
+    """(e) Four ranks on the one card (``gloo``, which moves CUDA tensors
+    through the host; NCCL refuses two ranks on one card): 8 frames of config 1
+    in the landmark layout, 8 slots per rank, held against (d)'s
+    single-process run to the CPU tests' tolerances."""
+    from cv_monoslam_tpu_torch.parallel import launch
+
+    cfg, *inputs = d["inputs"]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_landmark_rank, 4, "cuda",
+                         *launch.to_numpy(tuple(inputs)), cfg,
+                         timeout_s=300.0, backend="gloo")
+    wall = time.perf_counter() - t0
+    want = d["single"]
+    frames = d["frames"]
+    res = dict(ranks=4, seconds=wall,
+               max_pose_diff=max(float(np.abs(r["pose"] - want["pose"])
+                                       .max()) for r in ranks),
+               slots_per_rank=[r["slots"] for r in ranks],
+               launches_per_rank=[{k: r["counts"][k] for k in
+                                   ("ncc_score_map", "warp_bilinear")}
+                                  for r in ranks])
+    log("[multidevice] (e) four gloo ranks on one card " + json.dumps(res))
+    log(f"[multidevice] (e) [{smi}] 4 ranks x 8 slots, {frames} frames of "
+        f"config 1: max|pose - single| {res['max_pose_diff']:.3e} "
+        f"(<= 1e-5), {wall:.1f} s with the spawn")
+    problems = []
+    for i, r in enumerate(ranks):
+        problems += [f"rank {i}: {p}" for p in
+                     launch_problems(r["counts"], frames, "(e)")]
+        if r["slots"] != 8:
+            problems.append(f"rank {i} ran the kernels on {r['slots']} "
+                            f"slots, wanted 8")
+        for k in ("active", "matched", "lid"):
+            if not np.array_equal(r[k], want[k]):
+                problems.append(f"rank {i}: lm_{k} differs")
+    if not res["max_pose_diff"] <= 1e-5:
+        problems.append(f"pose differs by {res['max_pose_diff']}")
+    if problems:
+        raise AssertionError("four-rank checks failed: "
+                             + "; ".join(problems))
+    return res
+
+
+def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
+    """(b64) A second witness to (b)'s ATE: (b)'s frames through the
+    distributed factorization in float64, with the plain vision versions
+    (the kernels take float32). Whether float64 needs the 1e-3 rung, and
+    where its ATE falls against (b)'s, tells the rung's share of the
+    float32 spread from the filter's ordinary roundoff. Checks only 64
+    finite frames: the ATE is read, not gated."""
+    from cv_monoslam_tpu_torch.parallel.mesh import set_mesh
+
+    with set_mesh(mesh), counted_dist_chol() as seen:
+        sess, gt_xy = config3_session(dev, 8, dist_chol_panel=64,
+                                      dtype="float64", vision_backend="xla")
+        n0 = len(sess.records)
+        t0 = time.perf_counter()
+        sess.run(n_frames=64, chunk=8, drop_tail=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    recs = sess.records
+    res = dict(frames=len(recs) - n0, fps=(len(recs) - n0) / dt,
+               ate_m=sess.ate(gt_xy), dist_chol_calls=seen["calls"],
+               rung1=seen["not_finite"],
+               peak_matched=max(r.n_matched for r in recs),
+               repairs=recs[-1].n_repairs,
+               escalations=recs[-1].n_escalations,
+               skipped=recs[-1].n_skipped)
+    log("[multidevice] (b64) config 3 float64 " + json.dumps(res))
+    log(f"[multidevice] (b64) [{smi}] config 3 through dist_chol in float64: "
+        f"ATE {res['ate_m']:.5f} m, {res['rung1']} of {seen['calls']} "
+        f"factorizations not finite; float32 (b): ATE {b['ate_m']:.5f} m, "
+        f"{b['rung1']} of {b['dist_chol_calls']}; {res['fps']:.2f} frames/s")
+    if res["frames"] != 64 or not np.all(np.isfinite(sess.trajectory)):
+        raise AssertionError("float64 witness: not 64 finite frames")
+    return res
+
+
+def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
+    """The multi-device paths at world size 1: an NCCL process group in this
+    process (``file://`` rendezvous in a temporary directory), its mesh,
+    then (b) config 3 through the distributed joint factorization, (a) that
+    factorization alone on the matrix of (b)'s call KEPT_CALL, (c) distributed
+    BA on the config-5 problem, (d) the landmark-layout step on config 1,
+    (e) the same on four spawned ranks sharing the card, (b64) (b) in
+    float64. The group is closed at the end, also on failure."""
+    import torch.distributed as dist
+    from cv_monoslam_tpu_torch.parallel import launch
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, set_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.init_process(0, 1, "cuda", os.path.join(tmp, "rendezvous"))
+        try:
+            mesh = make_mesh()
+            log(f"[multidevice] NCCL group: rank {mesh.rank} of "
+                f"{mesh.size} on {mesh.device}")
+            t0 = time.perf_counter()
+            with set_mesh(mesh), counted_dist_chol() as seen:
+                b = phase_config3(dev, errs, tag="config3_dist_chol",
+                                  dist_chol_panel=64)
+            b["dist_chol_calls"] = seen["calls"]
+            b["rung1"] = seen["not_finite"]
+            log(f"[multidevice] (b) config 3 through dist_chol: "
+                f"{b['fps']:.2f} frames/s (phase 5: {c3['fps']:.2f} "
+                f"frames/s, same call) [{smi}]; {seen['calls']} "
+                f"distributed factorizations in {b['frames'] + 16} frames, "
+                f"{b['rung1']} of them not finite (frames sent to the 1e-3 "
+                f"rung); ATE {b['ate_m']:.5f} m (phase 5: "
+                f"{c3['ate_m']:.5f} m); {time.perf_counter() - t0:.1f} s")
+            if seen["calls"] < b["frames"] + 16:
+                raise AssertionError(
+                    f"the distributed factorization ran {seen['calls']} "
+                    f"times in {b['frames'] + 16} frames")
+            out["b"] = b
+            for key, fn in (("a", lambda: md_chol(mesh, seen["kept"], smi)),
+                            ("c", lambda: md_ba(mesh, dev, smi)),
+                            ("d", lambda: md_landmark_step(mesh, dev)),
+                            ("e", lambda: md_four_ranks(out["d"], smi)),
+                            ("b64", lambda: md_witness64(mesh, dev, b, smi))):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                log(f"[multidevice] ({key}) {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def phase_profile(dev, config: int) -> None:
     """Where a chunk's time goes: ``torch.profiler`` over one chunk after
     the warm-up (config 1: one 32-frame chunk of the slice; config 3: after
@@ -1042,6 +1479,40 @@ def sync_census(sess, chunk: int, label: str) -> None:
         log(f"{tag}   {cnt / n:6.2f}/frame  {src}")
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def wall_and_busy_ms(fn, reps: int = 5) -> Tuple[float, float, int]:
+    """For a call that the host, not the device, paces: the median wall
+    time of ``reps`` calls (host clock, synchronized at both ends), and of
+    one profiled call the device-busy time (the union of its device
+    intervals) and its count of device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return statistics.median(walls), union_us(spans) / 1e3, len(spans)
+
+
 def profile_chunk(sess, chunk: int, label: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1065,11 +1536,7 @@ def profile_chunk(sess, chunk: int, label: str) -> None:
         k = by_name.setdefault(e.name, [0, 0.0])
         k[0] += 1
         k[1] += b - a
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = union_us(spans)
     tag = f"[profile] {label}, detect={sess.chunk_detect[-1]}"
     log(f"{tag}: {n} frames: {wall_us / n / 1e3:.3f} ms/frame wall, "
         f"{busy / n / 1e3:.3f} ms/frame device-busy "
@@ -1102,17 +1569,24 @@ def main() -> int:
         f", CUDA {torch.version.cuda}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmul is on: covariance math needs FP32")
-    phase_build()
-    errs = phase_kernel_checks(dev)
-    times = phase_kernel_times(dev)
-    sl = phase_slice(dev, errs)
-    c3 = phase_config3(dev, errs)
-    rd = phase_redirect(dev)
-    phase_checkpoint(dev)
-    c4 = phase_config4(dev, errs, info["smi"])
-    phase_cli(info)
+    def run(phase, *a):
+        t0 = time.perf_counter()
+        out = phase(*a)
+        log(f"[phase] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run(phase_build)
+    errs = run(phase_kernel_checks, dev)
+    times = run(phase_kernel_times, dev)
+    sl = run(phase_slice, dev, errs)
+    c3 = run(phase_config3, dev, errs)
+    rd = run(phase_redirect, dev)
+    run(phase_checkpoint, dev)
+    c4 = run(phase_config4, dev, errs, info["smi"])
+    run(phase_cli, info)
+    md = run(phase_multidevice, dev, errs, c3, info["smi"])
     if args.profile:
-        phase_profile(dev, args.config)
+        run(phase_profile, dev, args.config)
 
     meta = {
         "ncc_score_map": dict(
@@ -1130,6 +1604,10 @@ def main() -> int:
                  launches_config3=c3["launches"][name],
                  launches_redirect=rd["launches"][name],
                  launches_config4=c4["launches"][name],
+                 launches_config3_dist_chol=md["b"]["launches"][name],
+                 launches_landmark_step=md["d"]["launches"][name],
+                 launches_four_ranks=[r[name] for r in
+                                      md["e"]["launches_per_rank"]],
                  max_abs_err=errs[name],
                  ms=t32["ms"], plain_ms=t32["plain_ms"],
                  bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
@@ -1163,6 +1641,11 @@ def main() -> int:
         f"ATE filter {c4['ate_filter']:.4f} m -> refined "
         f"{c4['ate_refined']:.4f} m; {c4['summary']['keyframes']} keyframes, "
         f"{c4['summary']['loop_edges']} loop edges")
+    log(f"[multidevice] config 3 through dist_chol: {md['b']['fps']:.2f} "
+        f"frames/s; dist_chol {md['a']['ms']:.3f} ms vs cholesky_ex "
+        f"{md['a']['library_ms']:.3f} ms at n={md['a']['n']}; BA config 5 "
+        f"{md['c']['ms_per_iter_sharded']:.3f} ms/iteration sharded, "
+        f"{md['c']['ms_per_iter_single']:.3f} single")
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

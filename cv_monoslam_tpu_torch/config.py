@@ -166,8 +166,10 @@ class SlamConfig:
     #: "xla" = the plain torch version everywhere, "auto" = the kernel for
     #: CUDA tensors and the plain version for CPU tensors.
     vision_backend: str = "auto"
-    #: multi-device panel width of the row-sharded joint Cholesky; not
-    #: ported: a value > 0 raises NotImplementedError at the update
+    #: panel width of the row-sharded joint Cholesky: with a value > 0 and
+    #: a mesh made ambient by ``parallel.mesh.set_mesh``, the gram update
+    #: factorizes across that mesh (``parallel/dist_chol.py``); 0, or no
+    #: ambient mesh, keeps the single-device factorization
     dist_chol_panel: int = 0
     #: sigma_mode="implicit" only: integrate new features through the
     #: closed-form sqrt fold (a 6K x 6K Cholesky) instead of a D x D

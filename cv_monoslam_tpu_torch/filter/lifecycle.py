@@ -25,7 +25,7 @@ from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
 from ..ops import qr_r
-from ..ops.linalg import gram
+from ..ops.linalg import gram_rows
 from .motion import (equilibrated_chol, structured_sqrt_gram,
                      structured_sqrt_gram_rows)
 from .sigma import deviations, generate_sigma, ut_weights
@@ -81,7 +81,7 @@ def fold_delete(x: torch.Tensor, S: torch.Tensor, delete: torch.Tensor,
     if cfg.qr_mode == "gram":
         # structured Gram: T = S diag(1-m), so [T; E]^T [T; E] is S^T S with
         # the masked rows+columns zeroed plus the unit diagonal
-        G = gram(S)
+        G = gram_rows(S)
         keep = ~row_mask
         G = torch.where(keep[:, None] & keep[None, :], G,
                         torch.zeros_like(G))
@@ -236,8 +236,10 @@ def _fold_sqrt(S: torch.Tensor, Ep: torch.Tensor, Em: torch.Tensor,
     Ea = 0.5 * (Ep + Em)
     V = (wi * g) * Es[:D]                                  # (D, 6KA)
     coef = wi - wi * wi * g * g                            # 0 for UT weights
-    delta = (wi * (Es[D:].T @ Es[D:] + Ea.T @ Ea)
-             + coef * (Es[:D].T @ Es[:D]))
+    # Ea's and Es[:D]'s rows include S's rows (gram_rows: summed across
+    # ranks in the shard_sqrt step); Es[D:] holds only the noise rows
+    delta = (wi * (Es[D:].T @ Es[D:] + gram_rows(Ea))
+             + coef * gram_rows(Es[:D]))
     # ridx order is [all pos rows, all ang rows] (3 per target per half)
     vmask3 = torch.repeat_interleave(valid, 3)
     vmask = torch.cat([vmask3, vmask3])

@@ -35,15 +35,18 @@ def chol2x2_upper(g: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     ], dim=-2)
 
 
-def project_all(sigma: torch.Tensor, cfg: SlamConfig) -> torch.Tensor:
-    """Project every slot through every sigma point.
+def project_all(sigma: torch.Tensor, cfg: SlamConfig, lo: int = 0,
+                hi: int | None = None) -> torch.Tensor:
+    """Project every slot (or the slots ``[lo, hi)``) through every sigma
+    point.
 
     sigma: (Na, n_sigma) augmented motion-propagated points.
     Returns pixels (M, 2, n_sigma) with the (0, 0) invisible sentinel.
     """
-    M = cfg.max_landmarks
+    hi = cfg.max_landmarks if hi is None else hi
+    M = hi - lo
     D = cfg.state_dim
-    feats = sigma[: 6 * M].reshape(M, 6, -1).permute(0, 2, 1)   # (M, ns, 6)
+    feats = sigma[6 * lo:6 * hi].reshape(M, 6, -1).permute(0, 2, 1)  # M,ns,6
     pos = sigma[D - 4: D - 1].T                                  # (ns, 3)
     theta = sigma[D - 1]                                         # (ns,)
     err = sigma[D + 3: D + 5].T                                  # (ns, 2)
@@ -66,6 +69,16 @@ def _batched_chol_lower(a: torch.Tensor) -> torch.Tensor:
 def measurement_predict_reduced(state: FilterState, cache: PredictCache,
                                 cfg: SlamConfig):
     """Per-landmark reduced-subspace UT (sigma_mode="implicit").
+    Returns (new_state, cache with pred/h_lin filled)."""
+    return apply_prediction(state, cache,
+                            _reduced_rows(state, cache, cfg, 0,
+                                          cfg.max_landmarks))
+
+
+def _reduced_rows(state: FilterState, cache: PredictCache, cfg: SlamConfig,
+                  lo: int, hi: int) -> dict:
+    """:func:`measurement_predict_reduced`'s per-landmark outputs for the
+    slots ``[lo, hi)``.
 
     Each landmark's measurement depends on EXACTLY 10 state dims: its own
     6-dim inverse-depth block plus the robot pose (x, y, z, theta). Each
@@ -81,21 +94,21 @@ def measurement_predict_reduced(state: FilterState, cache: PredictCache,
     dtype = state.x.dtype
     dev = state.x.device
     D = cfg.state_dim
-    M = cfg.max_landmarks
+    M = hi - lo
 
     # subspace covariance of z_m = [feat6_m, robot4]
     if cache.g_pred is not None:
         # blocks gathered straight from the motion-predicted covariance
         # Gram (state.S is stale here by design)
         G = cache.g_pred
-        idx6 = (6 * torch.arange(M, device=dev)[:, None]
+        idx6 = (6 * torch.arange(lo, hi, device=dev)[:, None]
                 + torch.arange(6, device=dev)[None, :])
         FF = G[idx6[:, :, None], idx6[:, None, :]]         # (M, 6, 6)
-        FR = G[:6 * M, D - 4:].reshape(M, 6, 4)            # (M, 6, 4)
+        FR = G[6 * lo:6 * hi, D - 4:].reshape(M, 6, 4)     # (M, 6, 4)
         RR = G[D - 4:, D - 4:]
     else:
         S = state.S
-        S_feat = S[:, : 6 * M].reshape(D, M, 6)
+        S_feat = S[:, 6 * lo:6 * hi].reshape(D, M, 6)
         S_rob = S[:, D - 4:]
         FF = torch.einsum("dmi,dmj->mij", S_feat, S_feat)
         FR = torch.einsum("dmi,dj->mij", S_feat, S_rob)
@@ -109,7 +122,7 @@ def measurement_predict_reduced(state: FilterState, cache: PredictCache,
     L = _batched_chol_lower(cov + (1e-7 * scale)[:, None, None] * eye10)
 
     w_r = ut_weights(10, cfg)
-    mu_z = torch.cat([state.x[: 6 * M].reshape(M, 6),
+    mu_z = torch.cat([state.x[6 * lo:6 * hi].reshape(M, 6),
                       state.x[D - 4:].expand(M, 4)], dim=1)  # (M, 10)
     offs = w_r.gamma * L.transpose(1, 2)                   # (M, 10pt, 10)
     c0 = mu_z[:, None, :]
@@ -132,7 +145,7 @@ def measurement_predict_reduced(state: FilterState, cache: PredictCache,
 
     mean = torch.einsum("msi,s->mi", pix, w_r.mean_weights(dtype, dev))
     lm = state.lm
-    visible = lm.active & (mean[:, 0] != 0) & (mean[:, 1] != 0)
+    visible = lm.active[lo:hi] & (mean[:, 0] != 0) & (mean[:, 1] != 0)
 
     dz = w_r.wi_sr * (pts[:, 1:] - pts[:, :1])             # (M, 20, 10)
     dh = w_r.wi_sr * (pix[:, 1:] - pix[:, :1])             # (M, 20, 2)
@@ -156,19 +169,42 @@ def measurement_predict_reduced(state: FilterState, cache: PredictCache,
     h_lin = torch.where(torch.isfinite(h_lin), h_lin,
                         torch.zeros_like(h_lin))           # (M, 2, 10)
 
-    pred = torch.where(visible[:, None], mean, lm.pred)
+    return dict(visible=visible,
+                pred=torch.where(visible[:, None], mean, lm.pred[lo:hi]),
+                si=torch.where(visible[:, None, None], si, lm.si[lo:hi]),
+                h_lin=h_lin)
+
+
+def apply_prediction(state: FilterState, cache: PredictCache,
+                     rows: dict):
+    """Write per-landmark prediction outputs (``visible``, merged ``pred``
+    and ``si``, and ``sigma_pix`` or ``h_lin``) for every slot into the
+    landmark table and the cache."""
+    lm = state.lm
+    visible = rows["visible"]
     lm_new = replace(
         lm,
         visible=visible,
         matched=torch.zeros_like(lm.matched),
         n_predict=lm.n_predict + visible.to(torch.int32),
-        pred=pred,
-        si=torch.where(visible[:, None, None], si, lm.si),
+        pred=rows["pred"],
+        si=rows["si"],
     )
+    extra = {k: rows[k] for k in ("sigma_pix", "h_lin") if k in rows}
     return (
         replace(state, lm=lm_new),
-        replace(cache, pred=pred, h_lin=h_lin),
+        replace(cache, pred=rows["pred"], **extra),
     )
+
+
+def prediction_rows(state: FilterState, cache: PredictCache,
+                    cfg: SlamConfig, lo: int, hi: int) -> dict:
+    """The per-landmark outputs of :func:`measurement_predict` for the slots
+    ``[lo, hi)`` only (for :func:`apply_prediction`): the part a
+    landmark-sharded step splits across ranks."""
+    if cfg.sigma_mode == "implicit":
+        return _reduced_rows(state, cache, cfg, lo, hi)
+    return _full_rows(state, cache, cfg, lo, hi)
 
 
 def measurement_predict(state: FilterState, cache: PredictCache,
@@ -176,16 +212,23 @@ def measurement_predict(state: FilterState, cache: PredictCache,
     """Returns (new_state, cache with sigma_pix/pred filled)."""
     if cfg.sigma_mode == "implicit":
         return measurement_predict_reduced(state, cache, cfg)
+    return apply_prediction(state, cache,
+                            _full_rows(state, cache, cfg, 0,
+                                       cfg.max_landmarks))
+
+
+def _full_rows(state: FilterState, cache: PredictCache, cfg: SlamConfig,
+               lo: int, hi: int) -> dict:
     dtype = state.x.dtype
     dev = state.x.device
     D = cfg.state_dim
     w = ut_weights(D + 5, cfg)
 
-    pix = project_all(cache.sigma, cfg)                 # (M, 2, ns)
+    pix = project_all(cache.sigma, cfg, lo, hi)         # (M, 2, ns)
     mean = pix @ w.mean_weights(dtype, dev)             # (M, 2)
 
     lm = state.lm
-    visible = lm.active & (mean[:, 0] != 0) & (mean[:, 1] != 0)
+    visible = lm.active[lo:hi] & (mean[:, 0] != 0) & (mean[:, 1] != 0)
 
     dev_pix = w.wi_sr * (pix[:, :, 1:] - pix[:, :, :1])  # (M, 2, 2Na)
     gram = torch.einsum("mis,mjs->mij", dev_pix, dev_pix)
@@ -193,17 +236,7 @@ def measurement_predict(state: FilterState, cache: PredictCache,
     gram = gram + (cfg.sigma_measure ** 2) * torch.eye(
         2, dtype=dtype, device=dev)
     si = chol2x2_upper(gram)
-
-    pred = torch.where(visible[:, None], mean, lm.pred)
-    lm_new = replace(
-        lm,
-        visible=visible,
-        matched=torch.zeros_like(lm.matched),
-        n_predict=lm.n_predict + visible.to(torch.int32),
-        pred=pred,
-        si=torch.where(visible[:, None, None], si, lm.si),
-    )
-    return (
-        replace(state, lm=lm_new),
-        replace(cache, sigma_pix=pix, pred=pred),
-    )
+    return dict(visible=visible,
+                pred=torch.where(visible[:, None], mean, lm.pred[lo:hi]),
+                si=torch.where(visible[:, None, None], si, lm.si[lo:hi]),
+                sigma_pix=pix)

@@ -23,7 +23,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import qr_r
-from ..ops.linalg import chol_psd_flagged
+from ..ops.linalg import chol_psd_flagged, gram_rows
 from .sigma import deviations, generate_sigma, ut_weights
 from .state import FilterState, PredictCache, count_repairs, replace
 
@@ -66,12 +66,13 @@ def structured_gram_rows(S: torch.Tensor, Ep: torch.Tensor,
                          Em: torch.Tensor, ridx: torch.Tensor, w):
     """Posterior covariance GRAM (no factorization) from the touched-row
     deviations: Ep/Em (Na_aug, |R|) are (chi_i - chi_0) for the +/- sigma
-    branches restricted to rows ``ridx``."""
+    branches restricted to rows ``ridx``. Every product contracts over S's
+    rows (``gram_rows``: summed across ranks in the shard_sqrt step)."""
     D = S.shape[0]
     c2g2 = 2.0 * (w.wi_sr * w.gamma) ** 2
-    G = c2g2 * (S.T @ S)                                       # (D, D)
-    cross = (w.wi_sr ** 2 * w.gamma) * (S.T @ (Ep[:D] - Em[:D]))
-    grr = (w.wi_sr ** 2) * (Ep.T @ Ep + Em.T @ Em)
+    G = c2g2 * gram_rows(S)                                    # (D, D)
+    cross = (w.wi_sr ** 2 * w.gamma) * gram_rows(S, Ep[:D] - Em[:D])
+    grr = (w.wi_sr ** 2) * (gram_rows(Ep) + gram_rows(Em))
     G[:, ridx] = cross
     G[ridx, :] = cross.T
     G[ridx[:, None], ridx[None, :]] = grr

@@ -113,14 +113,30 @@ def slam_step(state: FilterState, image: torch.Tensor,
     (matches < min_num, SLAM.cpp:552-562) is read on the host: one device
     sync per frame.
     """
+    return step_with(_predict_and_associate, state, image, odo_prev,
+                     odo_cur, redirect, cfg, allow_detect=allow_detect)
+
+
+def _predict_and_associate(state, cache, image, cfg):
+    state, cache = measurement_predict(state, cache, cfg)
+    return data_association(state, image, cfg), cache
+
+
+def step_with(predict_and_associate, state: FilterState,
+              image: torch.Tensor, odo_prev: torch.Tensor,
+              odo_cur: torch.Tensor, redirect: bool, cfg: SlamConfig, *,
+              allow_detect: bool = True):
+    """:func:`slam_step` with its measurement prediction and data
+    association given as ``predict_and_associate(state, cache, image,
+    cfg) -> (state, cache)``: the per-landmark stages, which a
+    landmark-sharded step splits across ranks (``parallel/spmd.py``)."""
     if redirect:
         state = redirect_reset(state, odo_cur[2], cfg)
         state = add_features(state, image, cfg, is_redirect=True,
                              should_add=True)
     else:
         state, cache = motion_predict(state, odo_prev, odo_cur, cfg)
-        state, cache = measurement_predict(state, cache, cfg)
-        state = data_association(state, image, cfg)
+        state, cache = predict_and_associate(state, cache, image, cfg)
         state = kalman_update(state, cache, cfg)
         state = update_features(state, cfg)
     if allow_detect and not redirect:

@@ -33,8 +33,11 @@ batched form) — exact no-ops that keep every shape fixed. P' = S'^T S' is
 always PSD in the batched/gram paths; the sequential path inherits the
 reference's information double-counting (that is the point of offering it).
 
-The row-sharded joint Cholesky (``dist_chol_panel > 0``) is a multi-device
-path and raises here.
+With ``cfg.dist_chol_panel > 0`` and a mesh made ambient by
+``parallel.mesh.set_mesh``, the gram updates' joint factorization runs as
+the row-sharded panel Cholesky across that mesh (``parallel/dist_chol.py``;
+``_dist_joint_chol``); without a mesh the panel width is ignored, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 
 from ..config import SlamConfig
 from ..ops import chol_downdate, gmw_chol, gram, tri_solve
-from ..ops.linalg import chol_psd_flagged
+from ..ops.linalg import AMBIENT, chol_psd_flagged, gram_rows
 from .sigma import ut_weights
 from .state import FilterState, PredictCache, count_repairs, replace
 
@@ -104,8 +107,8 @@ def _update_gram(state: FilterState, cache: PredictCache,
     # joint-Gram Cholesky: the Schur complement emerges inside one
     # factorization instead of the f32-cancellation-prone explicit
     # G - W^T W; an unrepairable frame degrades to "skip this update"
-    G = gram(state.S)
-    S_new, dx, rep = _joint_schur_chol(pyy, pxy, G, nu)
+    G = gram_rows(state.S)
+    S_new, dx, rep = _joint_schur_chol(pyy, pxy, G, nu, cfg)
     ok = any_match & torch.isfinite(S_new).all() & torch.isfinite(dx).all()
     skipped = (any_match & ~ok).to(torch.int32)
 
@@ -142,7 +145,7 @@ def _update_gram_implicit(state: FilterState, cache: PredictCache,
     # the motion stage hands over the predicted covariance GRAM (state.S is
     # stale); this stage performs the frame's only D x D factorization, on
     # the posterior
-    G = cache.g_pred if cache.g_pred is not None else gram(state.S)
+    G = cache.g_pred if cache.g_pred is not None else gram_rows(state.S)
 
     # B2 = G Hbar^T (D, 2M), built blockwise from G's landmark/robot cols
     Gf = G[:, : 6 * M].reshape(D, M, 6)
@@ -167,7 +170,7 @@ def _update_gram_implicit(state: FilterState, cache: PredictCache,
     pyy = c * 0.5 * (pyy + pyy.T) + torch.diag(r_noise)
     pxy = c * B2
 
-    S_new, dx, rep = _joint_schur_chol(pyy, pxy, G, nu)
+    S_new, dx, rep = _joint_schur_chol(pyy, pxy, G, nu, cfg)
     # a no-match frame factorizes G itself (Pxy = 0): the posterior equals
     # the prediction and the frame's single Cholesky still refreshes S
     ok = torch.isfinite(S_new).all() & torch.isfinite(dx).all()
@@ -185,8 +188,35 @@ def _update_gram_implicit(state: FilterState, cache: PredictCache,
                    n_skipped=state.n_skipped + skipped)
 
 
+def _dist_joint_chol(Js: torch.Tensor, panel: int):
+    """Row-sharded blocked Cholesky of the equilibrated joint matrix across
+    the ambient mesh (``parallel/dist_chol.py``) with a two-rung repair: a
+    clean attempt, then one 1e-3 diagonal shift (level 1). A result that is
+    still not finite is level 4, and the caller's skip fallback degrades the
+    frame to prediction-only — chol_psd_flagged's escalated rung without
+    six distributed factorizations. Each rung's test is one host read; the
+    factor is replicated, so every rank takes the same branch."""
+    from ..parallel.dist_chol import chol_rowsharded_padded
+
+    mesh = AMBIENT.get()[0]
+    r = chol_rowsharded_padded(Js, mesh, panel)
+    if bool(torch.isfinite(r).all()):
+        return r, 0
+    shifted = Js.clone()
+    shifted.diagonal().add_(1e-3)
+    r = chol_rowsharded_padded(shifted, mesh, panel)
+    return r, (1 if bool(torch.isfinite(r).all()) else 4)
+
+
+def _use_dist_chol(cfg: SlamConfig | None) -> bool:
+    """The distributed factorization needs both the config opt-in and an
+    ambient mesh (``parallel.mesh.set_mesh``)."""
+    return bool(cfg is not None and cfg.dist_chol_panel > 0
+                and AMBIENT.get()[0] is not None)
+
+
 def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
-                      nu: torch.Tensor):
+                      nu: torch.Tensor, cfg: SlamConfig | None = None):
     """Posterior sqrt + state correction via ONE joint Cholesky.
 
     Forming W = Ryy^-T Pxy^T explicitly and subtracting G - W^T W loses PSD
@@ -199,6 +229,9 @@ def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
     emerges inside the elimination with error ~eps*||J||.
     dx = Ryx^T Ryy^-T nu. Joint-diagonal equilibration keeps small-variance
     directions representable in float32.
+
+    Under ``cfg.dist_chol_panel > 0`` with an ambient mesh the (2M + D)^2
+    factorization runs as the row-sharded panel algorithm instead.
     """
     m2 = pyy.shape[0]
     J = torch.cat([
@@ -207,7 +240,10 @@ def _joint_schur_chol(pyy: torch.Tensor, pxy: torch.Tensor, G: torch.Tensor,
     dj = torch.sqrt(torch.clamp(torch.diagonal(J), min=0.0))
     dj = torch.where(dj > 0, dj, torch.ones_like(dj))
     Js = J / (dj[:, None] * dj[None, :])
-    Rj, rep = chol_psd_flagged(Js, 1e-6)
+    if _use_dist_chol(cfg):
+        Rj, rep = _dist_joint_chol(Js, cfg.dist_chol_panel)
+    else:
+        Rj, rep = chol_psd_flagged(Js, 1e-6)
     R = Rj * dj[None, :]
     ryy = R[:m2, :m2]
     ryx = R[:m2, m2:]
@@ -260,10 +296,6 @@ def kalman_update(state: FilterState, cache: PredictCache,
     if cfg.update_mode == "batched":
         return _update_batched(state, cache, cfg)
     if cfg.update_mode == "gram":
-        if cfg.dist_chol_panel > 0:
-            raise NotImplementedError(
-                "dist_chol_panel > 0 (the row-sharded joint Cholesky) is "
-                "not ported yet (ROADMAP.md, Queue 1: multi-device paths)")
         if cfg.sigma_mode == "implicit":
             return _update_gram_implicit(state, cache, cfg)
         return _update_gram(state, cache, cfg)

@@ -150,6 +150,15 @@ def ncc_scores(image: torch.Tensor, centers: torch.Tensor,
 def data_association(state: FilterState, image: torch.Tensor,
                      cfg: SlamConfig) -> FilterState:
     """Warp + gated NCC search + acceptance for all landmarks at once."""
+    return accept_matches(state, *association_rows(state, image, cfg), cfg)
+
+
+def association_rows(state: FilterState, image: torch.Tensor,
+                     cfg: SlamConfig):
+    """The per-landmark part of :func:`data_association`, for every slot of
+    ``state.lm`` (a landmark-sharded step hands each rank a table of its
+    own slots): both kernels, the gates and the NCC peak. Returns
+    (accepted before the consensus test, match pixels, warped patches)."""
     dtype = state.x.dtype
     dev = state.x.device
     lm = state.lm
@@ -209,7 +218,15 @@ def data_association(state: FilterState, image: torch.Tensor,
         mu = mu + _parabolic(masked, by, bx, axis=1)
         mv = mv + _parabolic(masked, by, bx, axis=0)
 
-    match_px = torch.stack([mu, mv], dim=1)
+    return accepted, torch.stack([mu, mv], dim=1), patches
+
+
+def accept_matches(state: FilterState, accepted: torch.Tensor,
+                   match_px: torch.Tensor, patches: torch.Tensor,
+                   cfg: SlamConfig) -> FilterState:
+    """The part of :func:`data_association` that spans landmarks: the
+    1-point RANSAC consensus, then the matches written into the table."""
+    lm = state.lm
     if cfg.use_ransac:
         accepted = one_point_ransac(accepted, match_px, lm.pred, cfg)
     lm_new = replace(

@@ -14,12 +14,36 @@ semantics.
 
 from __future__ import annotations
 
+import contextvars
+
 import torch
+
+#: ``(mesh, shard_sqrt)`` made ambient by ``parallel.mesh.set_mesh``: the
+#: mesh the joint update factorizes across (``cfg.dist_chol_panel > 0``),
+#: and whether :func:`gram_rows` sums S's row blocks across it. The filter
+#: reads it here, so it never imports the multi-device package.
+AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "ambient_mesh", default=(None, False))
 
 
 def gram(a: torch.Tensor) -> torch.Tensor:
     """A^T A at full precision of ``a``'s dtype."""
     return a.T @ a
+
+
+def gram_rows(a: torch.Tensor, b: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """``a^T b`` (``a^T a`` without ``b``): a contraction over the rows,
+    which are S's rows at the call sites. On one device this is the local
+    product, as :func:`gram`. Under a mesh made ambient with
+    ``shard_sqrt=True`` each rank multiplies only its block of rows and
+    one ``all_reduce`` sums the blocks (JAX's psum of local Grams)."""
+    b = a if b is None else b
+    mesh, shard_sqrt = AMBIENT.get()
+    if not shard_sqrt:
+        return a.T @ b
+    lo, hi = mesh.block(a.shape[0])
+    return mesh.all_reduce(a[lo:hi].T @ b[lo:hi])
 
 
 def _chol_upper(g: torch.Tensor):

@@ -83,6 +83,11 @@ def test_import_loads_no_jax():
         "import cv_monoslam_tpu_torch.io.recording\n"
         "import cv_monoslam_tpu_torch.io.synthetic\n"
         "import cv_monoslam_tpu_torch.io.video\n"
+        "import cv_monoslam_tpu_torch.parallel.mesh\n"
+        "import cv_monoslam_tpu_torch.parallel.launch\n"
+        "import cv_monoslam_tpu_torch.parallel.dist_chol\n"
+        "import cv_monoslam_tpu_torch.parallel.dist_ba\n"
+        "import cv_monoslam_tpu_torch.parallel.spmd\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'cv_monoslam_tpu' or m.startswith('cv_monoslam_tpu.')]\n"
         "print(','.join(bad))\n"
@@ -180,12 +185,19 @@ def test_redirect_slice_follows_jax_engine_24_frames():
     dict(dist_chol_panel=64),
     dict(dist_chol_panel=64, sigma_mode="implicit")])
 def test_unported_modes_raise(change):
-    """The one mode left that raises: the multi-device joint Cholesky."""
+    """No mode raises any more: a session with a panel width and no ambient
+    mesh runs the single-device factorization, frame for frame the same as
+    one without (``parallel.set_mesh`` makes it distributed; the tests of
+    that are tests/test_torch_dist_chol.py)."""
     seq, track, _, _ = tfix.load("bench1_arc")
-    with pytest.raises(NotImplementedError, match="dist_chol_panel"):
-        sess = SlamSession(SlamConfig(**{**KW, **change}), seq, track,
+    poses = []
+    for extra in (change, {k: v for k, v in change.items()
+                           if k != "dist_chol_panel"}):
+        sess = SlamSession(SlamConfig(**{**KW, **extra}), seq, track,
                            device="cpu")
-        sess.step()
+        sess.run(n_frames=4, chunk=4)
+        poses.append(sess.trajectory)
+    np.testing.assert_array_equal(poses[0], poses[1])
 
 
 SMALL_KW = dict(max_landmarks=8, max_new_per_frame=4, max_detections=24,
