@@ -88,9 +88,30 @@ non-zero and prints no result):
    (b64) a second witness to (b)'s ATE: the same frames through the
    distributed factorization in float64 (plain vision versions: the
    kernels take float32), 64 finite frames, ATE and 1e-3-rung count printed
-   beside (b)'s, not gated;
-11. one ``{"kernels": [...]}`` line, and as the last line
+   beside (b)'s, not gated; (f) the ``shard_sqrt`` step (every Gram over
+   S's rows a per-rank row-block product summed across the mesh) on (d)'s
+   8 frames: at the one NCCL rank bit for bit the single-device step, both
+   kernels once per frame; at (e)'s four ``gloo`` ranks each frame's step
+   from the single-device state that entered it within
+   ``tests/test_torch_spmd.py``'s tolerances, the run through all frames
+   with the single-device run's discrete results and the same state on
+   every rank, both kernels launched on every rank;
+11. the reference: the port on the card against the port's ``OracleSLAM``
+   (the reference's serial math in NumPy, on the host), on the synthetic
+   ``straight`` (18 frames) and ``arc`` (68 frames) sequences. (R1)
+   reference-faithful mode (``tests/test_parity.py``'s settings, float64,
+   plain vision versions: the kernels take float32): maps and match sets
+   equal on the straight 3-frame and arc 2-frame prefixes, poses within
+   1e-6, the first-update posterior x within 1e-10 and P within 1e-9; (R2)
+   default mode in float32 with both kernels at M = 16 over 67 frames: ATE
+   at most 1.2 x the oracle's + 0.002 m, each kernel once per tracked frame,
+   0 escalated repairs and 0 skipped updates; (R3) faithful mode over 50
+   frames: identical match sets on at least 25, mean Jaccard at least 0.55.
+   Each value is printed beside the CPU's (``PARITY_CPU``);
+12. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
+
+Phase 11 runs before phase 10, which opens the process group.
 """
 
 from __future__ import annotations
@@ -152,6 +173,16 @@ CONFIG4_JAX_CPU = dict(
     ate_filter=0.3586413212610804, ate_window_gate3=0.13835291100066124,
     ate_refined=0.13835291100066124, keyframes=23,
     loop_edges=[[0, 20], [0, 21], [1, 22]])
+#: the reference-faithful mode of ``tests/test_parity.py`` (float64)
+FAITHFUL = dict(max_landmarks=16, dtype="float64", update_mode="sequential",
+                rho_init_mode="flat", subpixel_match=False,
+                qr_mode="householder", detect_zero_blocks=True,
+                downdate_mode="gmw")
+#: the port with ``device="cpu"`` beside the oracle on the same sequences
+#: (``tests/test_torch_parity.py``'s cases): max |pose - oracle| over the
+#: prefix windows, and the 50-frame match-set statistics
+PARITY_CPU = dict(straight_dpose=3.6e-9, arc_dpose=8.7e-10, identical=36,
+                  jaccard=0.720)
 
 
 def log(*a):
@@ -989,6 +1020,157 @@ def phase_cli(info: dict) -> dict:
     return res
 
 
+def _match_sets(state) -> Tuple[list, list]:
+    lm = state.lm
+    act, lid, mt = (v.cpu().numpy() for v in (lm.active, lm.lid, lm.matched))
+    return (sorted(int(l) for l, a in zip(lid, act) if a),
+            sorted(int(l) for l, a, m in zip(lid, act, mt) if a and m))
+
+
+def _oracle_sets(oracle) -> Tuple[list, list]:
+    return (sorted(l.lid for l in oracle.landmarks),
+            sorted(l.lid for l in oracle.landmarks if l.matched))
+
+
+def first_update_posterior(state, oracle) -> dict:
+    """max |x - oracle| and max |P - oracle| (P = S^T S) over the oracle's
+    landmark rows and the robot's."""
+    act, lid, ex, eS = (v.cpu().numpy() for v in (
+        state.lm.active, state.lm.lid, state.x, state.S))
+    rows = []
+    for ol in oracle.landmarks:
+        s = int(np.flatnonzero(act & (lid == ol.lid))[0])
+        rows += list(range(6 * s, 6 * s + 6))
+    rows = np.asarray(rows + [len(ex) - 4 + i for i in range(4)])
+    return dict(first_update_dx=float(np.abs(ex[rows] - oracle.x).max()),
+                first_update_dP=float(np.abs((eS.T @ eS)[np.ix_(rows, rows)]
+                                             - oracle.S.T @ oracle.S).max()))
+
+
+def phase_reference(dev, smi: str) -> dict:
+    """The port on the card against the port's ``OracleSLAM`` (the serial
+    NumPy transcription of the reference, on the host): (R1) faithful mode
+    in float64 over the prefix windows and the first-update posterior;
+    (R2) default mode in float32 with both kernels over 67 frames, ATE
+    band; (R3) faithful mode, 50 frames, match-set statistics. Faithful
+    runs take the plain vision versions (``vision_backend="xla"``): the
+    kernels take float32."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io.synthetic import get_sequence
+    from cv_monoslam_tpu_torch.models.oracle import OracleSLAM
+
+    t0 = time.perf_counter()
+    # the arc sequence's trajectory and frames are prefixes of each other
+    # for every n, so 68 frames serve the 18-, 60- and 68-frame cases of
+    # the CPU tests
+    seqs = {"straight": get_sequence("straight", 18, 0),
+            "arc": get_sequence("arc", 68, 0)}
+    res = dict(render_s=time.perf_counter() - t0, oracle_s=0.0)
+    faithful = SlamConfig(**FAITHFUL, vision_backend="xla")
+    problems = []
+
+    def pair(kind, cfg, oracle_cfg=None):
+        seq, track, gt_xy, _ = seqs[kind]
+        t = time.perf_counter()
+        oracle = OracleSLAM(oracle_cfg or cfg, seq, track)
+        res["oracle_s"] += time.perf_counter() - t
+        return oracle, SlamSession(cfg, seq, track, device=dev), track, gt_xy
+
+    def oracle_step(oracle):
+        t = time.perf_counter()
+        oracle.step()
+        res["oracle_s"] += time.perf_counter() - t
+
+    # (R1) prefix windows: maps and match sets equal on every frame, pose
+    # within 1e-6 (the card's float64 BLAS / solver round otherwise than
+    # the CPU's LAPACK; the CPU test keeps 1e-9 for arc); after the first
+    # straight frame, the posterior over the oracle's landmark rows
+    for kind, n in (("straight", 3), ("arc", 2)):
+        oracle, sess, _, _ = pair(kind, faithful)
+        if _oracle_sets(oracle)[0] != _match_sets(sess.state)[0]:
+            problems.append(f"{kind}: initial maps differ")
+        d = []
+        for k in range(n):
+            oracle_step(oracle)
+            rec = sess.step()
+            if _oracle_sets(oracle) != _match_sets(sess.state):
+                problems.append(f"{kind} frame {k + 1}: maps or match sets "
+                                f"differ")
+            d.append(float(np.abs(np.asarray(rec.pose)
+                                  - oracle.x[-4:]).max()))
+            if kind == "straight" and k == 0:
+                res.update(first_update_posterior(sess.state, oracle))
+        res[f"{kind}_dpose"] = d
+        if not max(d) <= 1e-6:
+            problems.append(f"{kind}: |pose - oracle| {max(d)} > 1e-6")
+    if not (res["first_update_dx"] <= 1e-10
+            and res["first_update_dP"] <= 1e-9):
+        problems.append(f"first-update posterior |dx| "
+                        f"{res['first_update_dx']}, |dP| "
+                        f"{res['first_update_dP']}")
+
+    # (R2) default mode, float32, both kernels, M = 16: the ATE band
+    oracle, sess, track, gt_xy = pair(
+        "arc", SlamConfig(max_landmarks=16),
+        SlamConfig(max_landmarks=16, dtype="float64"))
+    while oracle.counter < len(track):
+        oracle_step(oracle)
+    otraj = np.stack(oracle.traj)
+    ids = track.frame_id[1:len(otraj) + 1]
+    res["ate_oracle"] = float(np.sqrt(((otraj[:, :2] - gt_xy[ids]) ** 2)
+                                      .sum(1).mean()))
+    reset_counters()
+    sess.run(chunk=32)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    recs = sess.records
+    res.update(ate_port=float(sess.ate(gt_xy)), frames=len(recs),
+               escalations=recs[-1].n_escalations,
+               skipped=recs[-1].n_skipped,
+               launches={k: counts[k] for k in ("ncc_score_map",
+                                                "warp_bilinear")})
+    band = 1.2 * res["ate_oracle"] + 0.002
+    problems += launch_problems(counts, len(recs), "(R2)")
+    if len(recs) < 64 or not res["ate_port"] <= band:
+        problems.append(f"(R2) ATE {res['ate_port']} over {len(recs)} "
+                        f"frames, band {band}")
+    if res["escalations"] or res["skipped"]:
+        problems.append("(R2) escalated repairs or skipped updates")
+
+    # (R3) faithful mode, 50 frames: match-set statistics
+    oracle, sess, _, _ = pair("arc", faithful)
+    identical, jac = 0, []
+    for _ in range(50):
+        oracle_step(oracle)
+        sess.step()
+        e = set(_match_sets(sess.state)[1])
+        o = set(_oracle_sets(oracle)[1])
+        identical += e == o
+        jac.append(len(e & o) / len(e | o) if e | o else 1.0)
+    res.update(identical=identical, jaccard=float(np.mean(jac)))
+    if not (identical >= 25 and res["jaccard"] >= 0.55):
+        problems.append(f"(R3) {identical}/50 identical, mean Jaccard "
+                        f"{res['jaccard']}")
+    res["seconds"] = time.perf_counter() - t0
+
+    log("[reference] " + json.dumps(res))
+    cpu = PARITY_CPU
+    log(f"[reference] [{smi}] (R1) max|pose - oracle|: straight "
+        f"{max(res['straight_dpose']):.3e} (CPU {cpu['straight_dpose']:.1e}),"
+        f" arc {max(res['arc_dpose']):.3e} (CPU {cpu['arc_dpose']:.1e}); "
+        f"first update |dx| {res['first_update_dx']:.3e}, |dP| "
+        f"{res['first_update_dP']:.3e}; (R2) float32 + kernels ATE "
+        f"{res['ate_port']:.6f} m vs oracle {res['ate_oracle']:.6f} m over "
+        f"{res['frames']} frames; (R3) {identical}/50 identical match sets "
+        f"(CPU {cpu['identical']}/50), mean Jaccard {res['jaccard']:.3f} "
+        f"(CPU {cpu['jaccard']:.3f}); oracle {res['oracle_s']:.1f} s, "
+        f"rendering {res['render_s']:.1f} s")
+    if problems:
+        raise AssertionError("reference checks failed: " + "; ".join(problems))
+    return res
+
+
 @contextlib.contextmanager
 def counted_dist_chol():
     """While active, count the calls of the distributed factorization
@@ -1207,11 +1389,13 @@ def md_landmark_step(mesh, dev) -> dict:
     frames = 8
     cfg, state0, images, odo, redirect = config1_track(dev, frames)
     state = state0
-    poses = []
+    poses, entering, after = [], [], []
     for k in range(1, frames):
+        entering.append(state)
         state, out = slam_step(state, images[k], odo[k - 1], odo[k],
                                bool(redirect[k]), cfg)
         poses.append(out["pose"])
+        after.append(dict(pose=out["pose"], x=state.x, S=state.S))
     torch.cuda.synchronize()
     reset_counters()
     st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
@@ -1237,48 +1421,105 @@ def md_landmark_step(mesh, dev) -> dict:
         raise AssertionError("landmark-layout checks failed: "
                              + "; ".join(problems))
     res["single"] = dict(pose=torch.stack(poses).cpu().numpy(),
+                         x=want["x"], S=want["S"],
                          **{k: want[f"lm.{k}"] for k in
                             ("active", "matched", "lid")})
+    res["single_state"] = want
+    # each frame's single-device step: the state entering it and its result
+    res["single_steps"] = (entering, [{k: v.cpu().numpy() for k, v in
+                                       a.items()} for a in after])
     res["inputs"] = (cfg, state0, images, odo, redirect)
     return res
 
 
-def _landmark_rank(dev, state0, images, odo, redirect, cfg):
-    """One of (e)'s four ranks (spawned): config 1's frames in the landmark
-    layout over a ``gloo`` group whose ranks share the card; returns the
-    poses, the final table's discrete fields, the kernel launch counts and
-    the slot count the kernels saw."""
-    from cv_monoslam_tpu_torch.parallel.launch import to_device
-    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, state_shardings
+def md_shard_sqrt(mesh, d: dict) -> dict:
+    """(f) The ``shard_sqrt`` step (every Gram over S's rows a per-rank
+    row-block product summed across the mesh) on (d)'s 8 frames of config
+    1 at world size 1: bit for bit the single-device step, both kernels
+    launched once per frame."""
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+    from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
     from cv_monoslam_tpu_torch.parallel.spmd import run_frames
 
-    mesh = make_mesh(device=dev)
-    state0, images, odo, redirect = to_device(
-        (state0, images, odo, redirect), dev)
+    cfg, state0, images, odo, redirect = d["inputs"]
     reset_counters()
-    with captured_kernel_inputs(n=1) as captured:
-        st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
-                              state_shardings(mesh, cfg))
+    st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
+                          state_shardings(mesh, cfg, shard_sqrt=True))
     torch.cuda.synchronize()
-    return dict(pose=outs["pose"], active=st.lm.active,
-                matched=st.lm.matched, lid=st.lm.lid,
-                counts=read_counters(),
-                slots=int(captured["ncc"][0][0].shape[0]))
+    counts = read_counters()
+    want, got = d["single_state"], state_to_arrays(st)
+    unequal = [k for k in want
+               if not np.array_equal(want[k], got[k], equal_nan=True)]
+    if not np.array_equal(outs["pose"].cpu().numpy(), d["single"]["pose"]):
+        unequal.append("per-frame poses")
+    res = dict(frames=d["frames"], state_dim=cfg.state_dim, unequal=unequal,
+               launches={k: counts[k] for k in ("ncc_score_map",
+                                                "warp_bilinear")},
+               plain_normalizations=counts["plain_normalizations"])
+    log("[multidevice] (f) shard_sqrt step, 1 rank " + json.dumps(res))
+    problems = launch_problems(counts, d["frames"], "the shard_sqrt step")
+    if unequal:
+        problems.append(f"differs from the single-device step in {unequal}")
+    if problems:
+        raise AssertionError("shard_sqrt checks failed: "
+                             + "; ".join(problems))
+    return res
+
+
+def _landmark_rank(dev, state0, images, odo, redirect, cfg, entering):
+    """One of the four ranks of (e) and (f) (spawned): config 1's frames
+    over a ``gloo`` group whose ranks share the card, in the landmark layout
+    and then in the ``shard_sqrt`` layout; for each, the poses, the final
+    state's x, S and discrete table fields, the kernel launch counts and the
+    slot count the kernels saw. Then, in the ``shard_sqrt`` layout, one
+    step from each state in ``entering`` (the single-device state that
+    entered each frame): pose, x and S of each."""
+    from cv_monoslam_tpu_torch.parallel.launch import to_device
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, state_shardings
+    from cv_monoslam_tpu_torch.parallel.spmd import (run_frames,
+                                                     sharded_slam_step)
+
+    mesh = make_mesh(device=dev)
+    state0, images, odo, redirect, entering = to_device(
+        (state0, images, odo, redirect, entering), dev)
+    out = {}
+    for name, shard_sqrt in (("landmark", False), ("sqrt", True)):
+        reset_counters()
+        with captured_kernel_inputs(n=1) as captured:
+            st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
+                                  state_shardings(mesh, cfg, shard_sqrt))
+        torch.cuda.synchronize()
+        out[name] = dict(pose=outs["pose"], x=st.x, S=st.S,
+                         active=st.lm.active, matched=st.lm.matched,
+                         lid=st.lm.lid, counts=read_counters(),
+                         slots=int(captured["ncc"][0][0].shape[0]))
+    steps = []
+    layout = state_shardings(mesh, cfg, shard_sqrt=True)
+    for k, st in enumerate(entering, start=1):
+        st, o = sharded_slam_step(st, images[k], odo[k - 1], odo[k],
+                                  bool(redirect[k]), cfg, mesh, layout)
+        steps.append(dict(pose=o["pose"], x=st.x, S=st.S))
+    out["sqrt"]["steps"] = steps
+    return out
 
 
 def md_four_ranks(d: dict, smi: str) -> dict:
     """(e) Four ranks on the one card (``gloo``, which moves CUDA tensors
-    through the host; NCCL refuses two ranks on one card): 8 frames of config 1
-    in the landmark layout, 8 slots per rank, held against (d)'s
-    single-process run to the CPU tests' tolerances."""
+    through the host; NCCL refuses two ranks on one card): 8 frames of config
+    1 in the landmark layout, 8 slots per rank, held against (d)'s
+    single-process run to the CPU tests' tolerances. The same spawn runs
+    (f)'s ``shard_sqrt`` layout; its results are kept for
+    :func:`md_four_ranks_sqrt`."""
     from cv_monoslam_tpu_torch.parallel import launch
 
     cfg, *inputs = d["inputs"]
     t0 = time.perf_counter()
-    ranks = launch.spawn(_landmark_rank, 4, "cuda",
-                         *launch.to_numpy(tuple(inputs)), cfg,
-                         timeout_s=300.0, backend="gloo")
+    both = launch.spawn(_landmark_rank, 4, "cuda",
+                        *launch.to_numpy(tuple(inputs)), cfg,
+                        launch.to_numpy(d["single_steps"][0]),
+                        timeout_s=300.0, backend="gloo")
     wall = time.perf_counter() - t0
+    ranks = [r["landmark"] for r in both]
     want = d["single"]
     frames = d["frames"]
     res = dict(ranks=4, seconds=wall,
@@ -1291,7 +1532,7 @@ def md_four_ranks(d: dict, smi: str) -> dict:
     log("[multidevice] (e) four gloo ranks on one card " + json.dumps(res))
     log(f"[multidevice] (e) [{smi}] 4 ranks x 8 slots, {frames} frames of "
         f"config 1: max|pose - single| {res['max_pose_diff']:.3e} "
-        f"(<= 1e-5), {wall:.1f} s with the spawn")
+        f"(<= 1e-5), {wall:.1f} s with the spawn (and (f)'s run)")
     problems = []
     for i, r in enumerate(ranks):
         problems += [f"rank {i}: {p}" for p in
@@ -1306,6 +1547,66 @@ def md_four_ranks(d: dict, smi: str) -> dict:
         problems.append(f"pose differs by {res['max_pose_diff']}")
     if problems:
         raise AssertionError("four-rank checks failed: "
+                             + "; ".join(problems))
+    res["sqrt_ranks"] = [r["sqrt"] for r in both]
+    return res
+
+
+def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
+    """(f) at four ``gloo`` ranks on the card (run by (e)'s spawn). Each
+    frame's ``shard_sqrt`` step from the single-device state that entered
+    it, against the single-device step, to ``tests/test_torch_spmd.py``'s
+    tolerances for one step (pose rtol 1e-5 / atol 1e-6, x 1e-4 / 1e-5, S
+    1e-3 / 1e-4). The 7 frames run through from frame 0: discrete fields
+    equal to the single-device run, every rank the same, both kernels
+    launched by the sharded path on every rank. Its poses are printed, not
+    gated: in float32 the rank-summed Grams round otherwise than one
+    product, S differs by ~1e-6 after a step, and the filter amplifies
+    that ~25-fold per frame (the same run in float64 stays within 1e-12)."""
+    ranks = e.pop("sqrt_ranks")
+    want = d["single"]
+    frames = d["frames"]
+    steps = d["single_steps"][1]
+    step_diffs = {k: max(float(np.abs(r["steps"][i][k] - steps[i][k]).max())
+                         for r in ranks for i in range(frames))
+                  for k in ("pose", "x", "S")}
+    run_diffs = {k: max(float(np.abs(r[k] - want[k]).max()) for r in ranks)
+                 for k in ("pose", "x", "S")}
+    res = dict(ranks=4, frames=frames, state_dim=d["inputs"][0].state_dim,
+               max_abs_diff_one_step=step_diffs,
+               max_abs_diff_run=run_diffs,
+               slots_per_rank=[r["slots"] for r in ranks],
+               launches_per_rank=[{k: r["counts"][k] for k in
+                                   ("ncc_score_map", "warp_bilinear")}
+                                  for r in ranks])
+    log("[multidevice] (f) shard_sqrt step, four gloo ranks "
+        + json.dumps(res))
+    log(f"[multidevice] (f) [{smi}] shard_sqrt, 4 ranks, D = "
+        f"{res['state_dim']}, {frames} frames of config 1: one step from the "
+        f"single-device state, max|diff| pose {step_diffs['pose']:.3e}, x "
+        f"{step_diffs['x']:.3e}, S {step_diffs['S']:.3e}; run through, pose "
+        f"{run_diffs['pose']:.3e}, x {run_diffs['x']:.3e}, S "
+        f"{run_diffs['S']:.3e} (not gated)")
+    problems = []
+    for i, r in enumerate(ranks):
+        problems += [f"rank {i}: {p}" for p in
+                     launch_problems(r["counts"], frames, "(f)")]
+        for k in ("active", "matched", "lid"):
+            if not np.array_equal(r[k], want[k]):
+                problems.append(f"rank {i}: lm_{k} differs")
+        for k in ("pose", "x", "S"):
+            if not np.array_equal(r[k], ranks[0][k]):
+                problems.append(f"rank {i}: {k} differs from rank 0's")
+        if r["slots"] != want["active"].shape[0]:
+            problems.append(f"rank {i} ran the kernels on {r['slots']} slots")
+        for k, rtol, atol in (("pose", 1e-5, 1e-6), ("x", 1e-4, 1e-5),
+                              ("S", 1e-3, 1e-4)):
+            if not all(np.allclose(got[k], ref[k], rtol=rtol, atol=atol)
+                       for got, ref in zip(r["steps"], steps)):
+                problems.append(f"rank {i}: one-step {k} outside rtol "
+                                f"{rtol} / atol {atol}")
+    if problems:
+        raise AssertionError("four-rank shard_sqrt checks failed: "
                              + "; ".join(problems))
     return res
 
@@ -1385,7 +1686,10 @@ def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
             for key, fn in (("a", lambda: md_chol(mesh, seen["kept"], smi)),
                             ("c", lambda: md_ba(mesh, dev, smi)),
                             ("d", lambda: md_landmark_step(mesh, dev)),
+                            ("f", lambda: md_shard_sqrt(mesh, out["d"])),
                             ("e", lambda: md_four_ranks(out["d"], smi)),
+                            ("f4", lambda: md_four_ranks_sqrt(
+                                out["d"], out["e"], smi)),
                             ("b64", lambda: md_witness64(mesh, dev, b, smi))):
                 t0 = time.perf_counter()
                 out[key] = fn()
@@ -1584,6 +1888,7 @@ def main() -> int:
     run(phase_checkpoint, dev)
     c4 = run(phase_config4, dev, errs, info["smi"])
     run(phase_cli, info)
+    ref = run(phase_reference, dev, info["smi"])
     md = run(phase_multidevice, dev, errs, c3, info["smi"])
     if args.profile:
         run(phase_profile, dev, args.config)
@@ -1608,6 +1913,10 @@ def main() -> int:
                  launches_landmark_step=md["d"]["launches"][name],
                  launches_four_ranks=[r[name] for r in
                                       md["e"]["launches_per_rank"]],
+                 launches_reference=ref["launches"][name],
+                 launches_shard_sqrt=md["f"]["launches"][name],
+                 launches_shard_sqrt_four_ranks=[
+                     r[name] for r in md["f4"]["launches_per_rank"]],
                  max_abs_err=errs[name],
                  ms=t32["ms"], plain_ms=t32["plain_ms"],
                  bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
@@ -1646,6 +1955,9 @@ def main() -> int:
         f"{md['a']['library_ms']:.3f} ms at n={md['a']['n']}; BA config 5 "
         f"{md['c']['ms_per_iter_sharded']:.3f} ms/iteration sharded, "
         f"{md['c']['ms_per_iter_single']:.3f} single")
+    log(f"[reference] (R2) ATE {ref['ate_port']:.6f} m vs oracle "
+        f"{ref['ate_oracle']:.6f} m; (R3) {ref['identical']}/50 identical, "
+        f"Jaccard {ref['jaccard']:.3f}")
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

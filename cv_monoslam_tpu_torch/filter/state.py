@@ -202,6 +202,16 @@ def init_state(cfg: SlamConfig, theta0: float = 0.0, max_stored: int = 64,
     )
 
 
+def robot_pose(state: FilterState) -> torch.Tensor:
+    """(x, y, z, theta) — the last four state rows (SLAM.cpp:1184)."""
+    return state.x[-4:]
+
+
+def feature_states(state: FilterState, M: int) -> torch.Tensor:
+    """(M, 6) view of the landmark blocks."""
+    return state.x[: 6 * M].reshape(M, 6)
+
+
 def replace(obj: Any, **kw) -> Any:
     return dataclasses.replace(obj, **kw)
 

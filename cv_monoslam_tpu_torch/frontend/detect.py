@@ -177,6 +177,30 @@ def escalate_raws(kept: torch.Tensor, raw_rank: torch.Tensor,
     return ladder[idx]
 
 
+def detect_corners(image: torch.Tensor, cfg: SlamConfig,
+                   avoid: Optional[torch.Tensor] = None,
+                   avoid_valid: Optional[torch.Tensor] = None,
+                   n_matched: Union[torch.Tensor, int] = 0,
+                   n_map: Union[torch.Tensor, int] = 0,
+                   n_loop: Union[torch.Tensor, int] = 0,
+                   base_raws: Optional[int] = None):
+    """Full reference detection pipeline.
+
+    Returns (pix (K, 2), valid (K,), resp (K,)) where ``valid`` marks
+    corners inside the (possibly escalated) raw cap that pass every filter,
+    in response order.
+    """
+    if base_raws is None:
+        base_raws = cfg.n_process_raws
+    pix, kept, raw_rank, resp = gftt_candidates(image, cfg)
+    fok = candidate_filters(pix, cfg, avoid, avoid_valid, n_matched)
+    raws = escalate_raws(kept, raw_rank, fok,
+                         torch.as_tensor(n_map, device=image.device),
+                         n_loop, base_raws, cfg)
+    valid = kept & fok & (raw_rank < raws)
+    return pix, valid, resp
+
+
 def select_new_corners(pix: torch.Tensor, kept: torch.Tensor,
                        resp: torch.Tensor, k_add: int,
                        n_free: torch.Tensor):

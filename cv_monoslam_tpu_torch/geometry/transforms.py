@@ -70,6 +70,15 @@ def world_to_angles(hlw: torch.Tensor) -> torch.Tensor:
     return torch.stack([theta, phi], dim=-1)
 
 
+def world_to_camera(hlw: torch.Tensor, rcw: torch.Tensor) -> torch.Tensor:
+    """Rotate world vector into camera frame (SLAM.cpp:3290-3310)."""
+    return torch.einsum("...ij,...j->...i", rcw, hlw)
+
+
+def camera_to_world(hlr: torch.Tensor, rwc: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ij,...j->...i", rwc, hlr)
+
+
 def inverse_depth_to_cartesian(feat6: torch.Tensor) -> torch.Tensor:
     """Landmark 6-state -> world xyz (SLAM.cpp:2721-2751, 2766-2778)."""
     anchor = feat6[..., 0:3]

@@ -112,8 +112,10 @@ class ImageSequence:
     """Grayscale image provider.
 
     Either an in-memory array stack or a printf-pattern directory of images
-    (``%04d.jpg``), decoded with PIL and converted to grayscale float32 in
-    [0, 255] — the reference converts RGB->gray every frame (SLAM.cpp:542).
+    (``%04d.jpg``), decoded and converted to grayscale float32 in [0, 255] —
+    the reference converts RGB->gray every frame (SLAM.cpp:542). JPEG files
+    go through the native libjpeg decoder (``io/native.py``) when it builds,
+    everything else through PIL.
     """
 
     def __init__(self, pattern: Optional[str] = None,
@@ -137,6 +139,11 @@ class ImageSequence:
         path = self._pattern % int(frame_id)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
+        if path.lower().endswith((".jpg", ".jpeg")):
+            from . import native
+
+            if native.available():   # C++ libjpeg decode
+                return native.decode_jpeg_gray(path)
         from PIL import Image
 
         img = Image.open(path).convert("L")
@@ -145,3 +152,28 @@ class ImageSequence:
     def iter_ids(self, ids: Sequence[int]) -> Iterator[np.ndarray]:
         for i in ids:
             yield self.get(i)
+
+    def prefetch(self, ids: Sequence[int], width: int, height: int,
+                 depth: int = 4) -> Iterator[np.ndarray]:
+        """Iterate frames with background-thread decode when the native
+        runtime is available (the C++ prefetcher decodes up to ``depth``
+        frames ahead while the caller works); falls back to synchronous
+        decode otherwise."""
+        if (self._pattern is not None
+                and self._pattern.lower().endswith((".jpg", ".jpeg"))):
+            from . import native
+
+            if native.available():
+                pf = native.NativePrefetcher(self._pattern,
+                                             np.asarray(ids, np.int64),
+                                             width, height, depth)
+                try:
+                    while True:
+                        frame = pf.next()
+                        if frame is None:
+                            return
+                        yield frame
+                finally:
+                    pf.close()
+                return
+        yield from self.iter_ids(ids)

@@ -98,10 +98,18 @@ class RunRecorder:
                  features_path: Optional[str] = None,
                  metrics_path: Optional[str] = None,
                  use_native: bool = False):
-        # ``use_native`` asks for the C++ writer of ``native/``; this package
-        # has no binding to it, so the request is served as when that
-        # library is not built: by the Python writers below (same bytes)
-        del use_native
+        # ``use_native`` routes the robot and landmark files through the C++
+        # writer (``io/native.py``) when that library builds, else through
+        # the Python writers below. The C++ writer prints 10 decimals and no
+        # ``# frame k`` lines: its bytes differ, its rows agree to 1e-6.
+        self._native = None
+        if use_native and (robot_path or features_path):
+            from . import native
+
+            if native.available():
+                self._native = native.NativeRecorder(robot_path or "",
+                                                     features_path or "")
+                robot_path = features_path = None
         self.robot = RobotPathRecorder(robot_path) if robot_path else None
         self.features = (FeaturesInfoRecorder(features_path)
                          if features_path else None)
@@ -109,6 +117,15 @@ class RunRecorder:
 
     def record_frame(self, frame: int, *, odo_xy, pose, pose_cov2=None,
                      lids=None, xyz=None, valid=None, **metrics) -> None:
+        if self._native is not None:
+            cov = (np.zeros((2, 2)) if pose_cov2 is None
+                   else np.asarray(pose_cov2))
+            self._native.record_robot(frame, np.asarray(odo_xy),
+                                      np.asarray(pose)[:2], cov)
+            if lids is not None:
+                self._native.record_features(np.asarray(lids),
+                                             np.asarray(xyz),
+                                             np.asarray(valid))
         if self.robot is not None:
             cov = (np.zeros((2, 2)) if pose_cov2 is None
                    else np.asarray(pose_cov2))
@@ -123,6 +140,8 @@ class RunRecorder:
                                 odo=np.asarray(odo_xy), **metrics)
 
     def close(self) -> None:
+        if self._native is not None:
+            self._native.close()
         for w in (self.robot, self.features, self.metrics):
             if w is not None:
                 w.close()

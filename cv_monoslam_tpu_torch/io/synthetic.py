@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import zipfile
 from typing import Tuple
 
 import numpy as np
@@ -296,11 +297,16 @@ def get_sequence(kind: str, n: int, seed: int, noise: float = 0.0,
     path = os.path.join(CACHE, key + ".npz")
     cfg = SlamConfig()
     if os.path.exists(path):
-        d = np.load(path)
-        track = preprocess_odometry(d["raw"], min_step_xy=cfg.min_step_xy,
-                                    min_step_theta=cfg.min_step_theta)
-        return (ImageSequence(frames=d["frames"]), track, d["gt_xy"],
-                d["gt_th"])
+        try:
+            with np.load(path) as d:
+                frames, raw, gt_xy, gt_th = (d["frames"], d["raw"],
+                                             d["gt_xy"], d["gt_th"])
+        except (OSError, ValueError, EOFError, KeyError, zipfile.BadZipFile):
+            pass      # another process is still writing it: render anew
+        else:
+            track = preprocess_odometry(raw, min_step_xy=cfg.min_step_xy,
+                                        min_step_theta=cfg.min_step_theta)
+            return ImageSequence(frames=frames), track, gt_xy, gt_th
     world = make_world(seed=seed, cfg=cfg)
     xy, th = make_trajectory(kind, n=n, step=step)
     seq, _, gt_xy, gt_th = make_sequence(world, xy, th, cfg=cfg)
@@ -309,8 +315,13 @@ def get_sequence(kind: str, n: int, seed: int, noise: float = 0.0,
     raw = np.concatenate([
         np.arange(n, dtype=np.float64)[:, None], odo_xy,
         odo_th[:, None]], axis=1)
-    np.savez_compressed(path, frames=seq._frames, raw=raw, gt_xy=gt_xy,
-                        gt_th=gt_th)
+    # through a file of this process and a rename, so a reader in another
+    # process (either package) never opens a half-written file
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, frames=seq._frames, raw=raw, gt_xy=gt_xy,
+                            gt_th=gt_th)
+    os.replace(tmp, path)
     track = preprocess_odometry(raw, min_step_xy=cfg.min_step_xy,
                                 min_step_theta=cfg.min_step_theta)
     return seq, track, gt_xy, gt_th

@@ -93,3 +93,16 @@ def test_transforms_match_jax():
         np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
     _close(ttf.world_to_angles(torch.as_tensor(pos)),
            jtf.world_to_angles(jnp.asarray(pos)), 1e-12)
+
+
+def test_world_to_camera_and_back_match_jax():
+    rng = np.random.default_rng(4)
+    h = rng.normal(0, 1.0, (50, 3))
+    rot = np.array(jtf.yaw_matrix(jnp.asarray(rng.uniform(-3, 3, 50))))
+    rcw = np.swapaxes(rot, -1, -2)
+    got = ttf.world_to_camera(torch.as_tensor(h), torch.as_tensor(rcw))
+    _close(got, jtf.world_to_camera(jnp.asarray(h), jnp.asarray(rcw)), 1e-12)
+    back = ttf.camera_to_world(got, torch.as_tensor(rot))
+    _close(back, jtf.camera_to_world(jnp.asarray(got.numpy()),
+                                     jnp.asarray(rot)), 1e-12)
+    _close(back, h, 1e-12)

@@ -249,18 +249,30 @@ def _record_some(recorder, seed=0, n=6, M=5):
 
 @pytest.mark.parametrize("use_native", [False, True])
 def test_recorder_files_are_byte_equal_to_the_jax_packages(tmp_path,
-                                                           use_native):
-    """``use_native`` asks for the C++ writer; the port serves it with the
-    Python writers, whose bytes are the same."""
+                                                           use_native,
+                                                           monkeypatch):
+    """Each package's recorder with the same ``use_native``: the Python
+    writers, or the C++ writer (10 decimals, no frame lines) where both
+    packages' native libraries build."""
+    from cv_monoslam_tpu.io import native as jnative
     from cv_monoslam_tpu.io import recording as jrec
+    from cv_monoslam_tpu_torch.io import native as tnative
     from cv_monoslam_tpu_torch.io import recording as trec
 
+    if use_native:
+        # the JAX bindings over the library the port built (same source and
+        # flags): their own load would run ``make`` in native/
+        monkeypatch.setattr(jnative, "_LIB_PATH", tnative.library_path())
+        monkeypatch.setattr(jnative, "_lib", None)
+        monkeypatch.setattr(jnative, "_tried", False)
+        assert jnative.available() == tnative.available()
     names = dict(robot_path="RobotPath.txt", features_path="FeaturesInfo.txt",
                  metrics_path="metrics.jsonl")
-    for tag, mod, kw in (("j", jrec, {}),
-                         ("t", trec, dict(use_native=use_native))):
+    for tag, mod in (("j", jrec), ("t", trec)):
+        os.makedirs(tmp_path / tag)
         _record_some(mod.RunRecorder(
-            **{k: str(tmp_path / tag / v) for k, v in names.items()}, **kw))
+            **{k: str(tmp_path / tag / v) for k, v in names.items()},
+            use_native=use_native))
     for v in names.values():
         got = (tmp_path / "t" / v).read_bytes()
         assert got == (tmp_path / "j" / v).read_bytes(), v

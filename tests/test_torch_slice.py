@@ -83,6 +83,14 @@ def test_import_loads_no_jax():
         "import cv_monoslam_tpu_torch.io.recording\n"
         "import cv_monoslam_tpu_torch.io.synthetic\n"
         "import cv_monoslam_tpu_torch.io.video\n"
+        "import cv_monoslam_tpu_torch.io.native\n"
+        "import cv_monoslam_tpu_torch.io.dataset\n"
+        "import cv_monoslam_tpu_torch.io.fixtures\n"
+        "import cv_monoslam_tpu_torch.models.oracle\n"
+        "import cv_monoslam_tpu_torch.models.projective_warp\n"
+        "import cv_monoslam_tpu_torch.frontend.detect\n"
+        "import cv_monoslam_tpu_torch.geometry.transforms\n"
+        "import cv_monoslam_tpu_torch.filter.state\n"
         "import cv_monoslam_tpu_torch.parallel.mesh\n"
         "import cv_monoslam_tpu_torch.parallel.launch\n"
         "import cv_monoslam_tpu_torch.parallel.dist_chol\n"

@@ -75,3 +75,18 @@ def test_count_repairs_matches_jax(levels, minor, major):
                               *[np.int32(lv) for lv in levels])
     assert int(st.n_repairs) == int(js.n_repairs) == minor
     assert int(st.n_escalations) == int(js.n_escalations) == major
+
+
+def test_robot_pose_and_feature_states_match_jax():
+    cfg = SlamConfig(max_landmarks=3, dtype="float64")
+    x = np.random.default_rng(5).normal(size=cfg.state_dim)
+    st = tstate.replace(tstate.init_state(cfg, device="cpu"),
+                        x=torch.as_tensor(x))
+    js = jstate.replace(jstate.init_state(JaxConfig(max_landmarks=3,
+                                                    dtype="float64")), x=x)
+    np.testing.assert_array_equal(tstate.robot_pose(st).numpy(),
+                                  np.asarray(jstate.robot_pose(js)))
+    feats = tstate.feature_states(st, 3)
+    assert feats.shape == (3, 6) and feats.data_ptr() == st.x.data_ptr()
+    np.testing.assert_array_equal(feats.numpy(),
+                                  np.asarray(jstate.feature_states(js, 3)))

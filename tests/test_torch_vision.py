@@ -273,3 +273,43 @@ def test_warp_identity_zeroes_last_row_and_column():
                                rtol=0, atol=1e-9)
     assert float(got[0, -1].abs().max()) == 0.0
     assert float(got[0, :, -1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("avoid", [False, True])
+def test_detect_corners_matches_jax(avoid):
+    """The whole detection pipeline on a fixture frame, float64: the same
+    corners, the same validity mask, responses (up to ~5) to 2e-3: both
+    packages compute the map in float32, XLA's convolution and the port's
+    shifted sums in different orders, and the min eigenvalue is a small
+    difference of the structure tensor's much larger terms (XLA's CPU
+    convolution does not round alike from run to run: up to 8e-4 seen); with
+    landmark pixels to avoid (one of them zeroed, the isThereNoZero quirk
+    on) and an escalated raw cap."""
+    from cv_monoslam_tpu.config import SlamConfig as JaxConfig
+    from cv_monoslam_tpu.frontend import detect as jdet
+    from cv_monoslam_tpu_torch.frontend import detect as tdet
+    from cv_monoslam_tpu_torch.io import fixtures as tfix
+
+    kw = dict(max_landmarks=8, max_detections=48, dtype="float64",
+              detect_zero_blocks=avoid)
+    cfg, jcfg = SlamConfig(**kw), JaxConfig(**kw)
+    frame = tfix.load("bench1_arc")[0].get(5).astype(np.float64)
+    args, jargs = (), ()
+    extra = dict(n_matched=0, n_map=2, n_loop=0, base_raws=4)
+    if avoid:
+        rng = np.random.default_rng(7)
+        pts = rng.uniform([40, 40], [600, 440], (8, 2))
+        pts[3] = 0.0
+        ok = np.arange(8) < 6
+        args = (torch.as_tensor(pts), torch.as_tensor(ok))
+        jargs = (jnp.asarray(pts), jnp.asarray(ok))
+        extra["n_matched"] = 3
+    pix, valid, resp = tdet.detect_corners(torch.as_tensor(frame), cfg,
+                                           *args, **extra)
+    jpix, jvalid, jresp = jdet.detect_corners(jnp.asarray(frame), jcfg,
+                                              *jargs, **extra)
+    np.testing.assert_array_equal(pix.numpy(), np.asarray(jpix))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    np.testing.assert_allclose(resp.numpy(), np.asarray(jresp), rtol=0,
+                               atol=2e-3)
+    assert int(valid.sum()) == (0 if avoid else 3)
