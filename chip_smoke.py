@@ -12,34 +12,46 @@ non-zero and prints no result):
 1. the card: name and power limit (``nvidia-smi``), torch/CUDA versions;
 2. build: ``nvcc`` compiles ``cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu``
    for sm_90a into ``.cache/torch_ext/`` (seconds printed);
-3. kernel vs plain version on the card, for both kernels at M = 16, 32, 37
-   and 576 on seeded random inputs (integer-valued regions like uint8
+3. kernel vs plain version on the card, for the three kernels at M = 16,
+   32, 37 and 576 on seeded random inputs (integer-valued regions like uint8
    frames, a flat window, a flat template, a planted exact match), max
    |diff| <= 1e-4. The NCC kernel normalizes the template itself and also
    returns it, so it is held to three limits: (a) its templates against
    the plain normalization, <= 1e-6; (b) its scores against the plain
    score arithmetic on its own templates, <= 2e-5; (c) its scores against
    the plain version end to end, <= 1e-4; also for one non-default shape
-   (pm = 9, w1 = 13), which takes the kernel's run-time bounds. Then the launch floor (a kernel
-   that does nothing, bare and after the warp's ``torch.empty``) and each
-   kernel's time (CUDA events, median over 60 launches on perturbed
-   inputs): wrapper, kernel only into preallocated outputs, host enqueue
-   time, plain version, bound;
+   (pm = 9, w1 = 13), which takes the kernel's run-time bounds. The fused
+   kernel (warp + region copy + NCC, the one the matcher runs) on random
+   640 x 480 frames with region origins at the four clamped corners, an
+   identity warp, a warp that zeroes the last sample row and column, a
+   large shear, inf and NaN warps (and at hp_match = 4, hp_init = 6, its
+   run-time bounds): warped templates equal to the plain version's
+   exactly, its templates <= 1e-6, its scores on them <= 2e-5, scores
+   <= 1e-4, and against the chain of the two standalone kernels it
+   replaces (max |diff| printed, expected 0, <= 2e-5). Then the launch
+   floor (a kernel that does nothing, bare and after the warp's
+   ``torch.empty``) and each kernel's time (CUDA events, median over 60
+   launches on perturbed inputs): wrapper, kernel only into preallocated
+   outputs, host enqueue time, plain version, bound; for the fused kernel
+   also the chain it replaces (device and host time per call);
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
-   timed after a warm-up chunk; checks the launch counters (each kernel
-   once per tracked frame, and the plain template normalization never
-   called), the repair counters, ATE and matches, and holds both kernels
-   against their plain versions on frames captured from the run;
+   timed after a warm-up chunk; checks the launch counters (the fused
+   kernel once per tracked frame, the two standalone kernels and the plain
+   template normalization never), the repair counters, ATE and matches,
+   and holds the fused kernel against its plain version and against the
+   standalone chain (each standalone kernel against its plain version) on
+   frames captured from the run;
 5. config 3 at full width: ``sigma_mode="implicit"`` at M = 576 landmarks
    (state dimension 3460) on the frozen ``bench3_grid`` fixture, float32,
    host-gated detection, two warm-up chunks of 8 and 64 timed frames in
    chunks of 8 (the configuration ``bench.py`` calls config 3). Checks: 64
    frames, finite poses, peak matched >= 500, ATE < 0.03 m, no more
    escalated repairs or skipped updates than the JAX engine shows on the
-   same frames in float32 on a CPU (``CONFIG3_JAX_CPU``), each kernel
-   launched once per frame at M = 576, no plain template normalization,
-   and both kernels against their plain versions on three captured frames;
+   same frames in float32 on a CPU (``CONFIG3_JAX_CPU``), the fused kernel
+   launched once per frame at M = 576 (the standalone ones never), no plain
+   template normalization, and the kernels against their plain versions on
+   three captured frames;
 6. the redirect branch: config 1 on the first 48 frames of ``bench1_arc``
    with a redirection forced at frame 24; map size, loop re-adds and stored
    records left on that frame must equal the JAX engine's
@@ -58,9 +70,9 @@ non-zero and prints no result):
    trajectory); >= 15 keyframes, >= 1 loop edge, refined ATE below filter
    ATE; no more escalated repairs or skipped updates than the JAX engine in
    float32 on a CPU (``CONFIG4_JAX_CPU``, printed beside the card's
-   numbers, not gated on); each kernel once per tracked frame at M = 16 in
-   each run; both kernels against their plain versions on three captured
-   frames. Prints frames/s of both runs and the wall time of every
+   numbers, not gated on); the fused kernel once per tracked frame at M =
+   16 in each run; the kernels against their plain versions on three
+   captured frames. Prints frames/s of both runs and the wall time of every
    ``refine_window`` / ``optimize_graph`` call;
 9. the command line: ``python3 -m cv_monoslam_tpu_torch run`` as a
    subprocess with no ``--device`` (it must pick the card), with recorder,
@@ -70,7 +82,7 @@ non-zero and prints no result):
 10. the multi-device paths (``cv_monoslam_tpu_torch/parallel/``) at world
    size 1: an NCCL process group in this process and its mesh, then (b)
    phase 5's config-3 run again with ``dist_chol_panel=64`` under
-   ``set_mesh`` (phase 5's checks, each kernel once per frame, and the
+   ``set_mesh`` (phase 5's checks, the fused kernel once per frame, and the
    distributed factorization once per frame), (a) that factorization alone
    on a joint matrix captured from (b) (n = 4612, padded to 4672, panel 64,
    float32) against ``cholesky_ex`` of the same matrix: backward error
@@ -80,10 +92,10 @@ non-zero and prints no result):
    config-5 problem (W = 8, L = 32768, 4 iterations, float64) against
    ``ba_solve``, poses and landmarks to 1e-9, ms per iteration of both;
    (d) the landmark-layout step on 8 frames of config 1, bit for bit the
-   single-device step, with both kernels launched by the sharded path;
+   single-device step, with the fused kernel launched by the sharded path;
    (e) the same 8 frames on four spawned ranks sharing the card through
    ``gloo`` (NCCL refuses two ranks on one card; ``gloo`` moves CUDA
-   tensors through the host), 8 slots and both kernels per rank, held against
+   tensors through the host), 8 slots and the fused kernel per rank, held against
    (d)'s single-process run: discrete fields equal, poses to 1e-5;
    (b64) a second witness to (b)'s ATE: the same frames through the
    distributed factorization in float64 (plain vision versions: the
@@ -95,7 +107,7 @@ non-zero and prints no result):
    from the single-device state that entered it within
    ``tests/test_torch_spmd.py``'s tolerances, the run through all frames
    with the single-device run's discrete results and the same state on
-   every rank, both kernels launched on every rank;
+   every rank, the fused kernel launched on every rank;
 11. the reference: the port on the card against the port's ``OracleSLAM``
    (the reference's serial math in NumPy, on the host), on the synthetic
    ``straight`` (18 frames) and ``arc`` (68 frames) sequences. (R1)
@@ -103,8 +115,8 @@ non-zero and prints no result):
    plain vision versions: the kernels take float32): maps and match sets
    equal on the straight 3-frame and arc 2-frame prefixes, poses within
    1e-6, the first-update posterior x within 1e-10 and P within 1e-9; (R2)
-   default mode in float32 with both kernels at M = 16 over 67 frames: ATE
-   at most 1.2 x the oracle's + 0.002 m, each kernel once per tracked frame,
+   default mode in float32 with the fused kernel at M = 16 over 67 frames:
+   ATE at most 1.2 x the oracle's + 0.002 m, it once per tracked frame,
    0 escalated repairs and 0 skipped updates; (R3) faithful mode over 50
    frames: identical match sets on at least 25, mean Jaccard at least 0.55.
    Each value is printed beside the CPU's (``PARITY_CPU``);
@@ -130,7 +142,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-TOL = 1e-4          # max |kernel - plain| for both kernels (values <= 255)
+TOL = 1e-4          # max |kernel - plain| scores and warps (values <= 255)
 TOL_PHAT = 1e-6     # NCC (a): kernel's templates vs plain normalization
 TOL_CORE = 2e-5     # NCC (b): kernel's scores vs plain scores on its p_hat
 N_TIMED = 60        # timed launches per measurement (median reported)
@@ -139,6 +151,11 @@ PEAK_FP32 = 67e12      # H100 SXM FP32 outside the tensor cores, FLOP/s
 SM_CLOCK_HZ = 1.98e9   # H100 SXM boost clock: converts a sleep to cycles
 PM, W1, PI = 17, 21, 21   # match patch, NCC offsets, init patch (defaults)
 RG = W1 + PM - 1
+HP_MATCH, HP_INIT = PM // 2, W1 // 2
+FRAME_H, FRAME_W = 480, 640   # the camera's frame (every configuration)
+#: the kernels' launch counters: the fused one the matcher runs, and the
+#: two standalone ones, which the main path must no longer launch
+KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear")
 
 #: config 3 of ``bench.py`` (``bench_large`` -> ``scripts/bench_large.py``)
 CONFIG3 = dict(max_landmarks=576, max_new_per_frame=64, max_detections=768,
@@ -236,6 +253,46 @@ def warp_inputs(m: int, rng: np.random.Generator, dev):
                                  device=dev) for x in (patches, su, sv))
 
 
+def fused_inputs(m: int, rng: np.random.Generator, dev,
+                 hp_init: int = HP_INIT, hp_match: int = HP_MATCH):
+    """(frame, base, A, init patches) for the fused kernel: a random
+    integer-valued frame, region origins clamped by the matcher's own
+    ``region_origins`` from centres scattered past the frame's edges (the
+    first four at its four corners), near-identity warps as the matcher
+    makes them (every fifth scaled out past the border), and special warps
+    at landmarks 4-8: identity (its template planted in its region at
+    offset (3, 4)), hp_init / hp_match times identity (the last sample row
+    and column on the patch edge: zeroed), a large shear and scale (samples
+    outside the patch), and inf and NaN entries (a singular J10)."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.frontend.matching import region_origins
+
+    pm, w1 = 2 * hp_match + 1, 2 * hp_init + 1
+    image = rng.integers(0, 256, (FRAME_H, FRAME_W)).astype(np.float32)
+    centers = np.stack([rng.integers(-40, FRAME_W + 40, m),
+                        rng.integers(-40, FRAME_H + 40, m)], axis=1)
+    centers[:4] = [[-50, -50], [FRAME_W + 50, -50], [-50, FRAME_H + 50],
+                   [FRAME_W + 50, FRAME_H + 50]]
+    base = region_origins(
+        torch.as_tensor(centers, dtype=torch.int32), FRAME_H, FRAME_W,
+        SlamConfig(hp_init=hp_init, hp_match=hp_match)).numpy()
+    a = np.eye(2, dtype=np.float32)[None] + rng.normal(
+        0, 0.15, (m, 2, 2)).astype(np.float32)
+    a[::5] *= 1.4
+    a[4] = np.eye(2)
+    a[5] = (hp_init / hp_match) * np.eye(2)
+    a[6] = [[2.0, 0.8], [-0.7, 1.9]]
+    a[7] = [[np.inf, -np.inf], [-np.inf, np.inf]]
+    a[8] = np.nan
+    patches = rng.integers(0, 256, (m, w1, w1)).astype(np.float32)
+    o = hp_init - hp_match
+    bu, bv = base[4]
+    image[bv + 3:bv + 3 + pm, bu + 4:bu + 4 + pm] = \
+        patches[4, o:o + pm, o:o + pm]
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                 for x in (image, base, a, patches))
+
+
 # ---------------------------------------------------------------------------
 # bounds (least time the card could take for the same work)
 # ---------------------------------------------------------------------------
@@ -257,6 +314,17 @@ def warp_bound(m: int) -> dict:
     n = m * PM * PM
     nbytes = 4 * (m * PI * PI + 3 * n)
     flops = 15 * n
+    return _bound(nbytes, flops)
+
+
+def warp_ncc_bound(m: int) -> dict:
+    """The fused kernel: bytes of the init patches, warps, origins, warped
+    templates and scores, and the frame's region bytes read once; the NCC
+    kernel's operations plus 15 per warped sample and 4 per coordinate."""
+    n = m * PM * PM
+    nbytes = (4 * (m * PI * PI + 4 * m + n + m * W1 * W1) + 4 * 2 * m
+              + 4 * min(m * RG * RG, FRAME_H * FRAME_W))
+    flops = ncc_bound(m)["flops"] + 15 * n + 4 * 2 * n
     return _bound(nbytes, flops)
 
 
@@ -336,8 +404,9 @@ def phase_build() -> float:
 
 
 def check_ncc(regions, patches, label: str, errs: dict, *,
-              pm: int = PM, w1: int = W1) -> torch.Tensor:
-    """Hold one NCC launch to its three limits; returns the scores."""
+              pm: int = PM, w1: int = W1):
+    """Hold one NCC launch to its three limits; returns the scores and the
+    kernel's normalized templates."""
     from cv_monoslam_tpu_torch.ops import vision
 
     got, p_hat = vision.ncc_score_map_with_templates(
@@ -360,7 +429,60 @@ def check_ncc(regions, patches, label: str, errs: dict, *,
             and bool(torch.isfinite(got).all())
             and bool(torch.isfinite(p_hat).all())):
         raise AssertionError(f"ncc kernel check failed: {label}")
-    return got
+    return got, p_hat
+
+
+def check_fused(args, label: str, errs: dict, *, hp_init: int = HP_INIT,
+                hp_match: int = HP_MATCH):
+    """Hold one fused launch against its plain version (warped templates
+    exactly, its p_hat <= TOL_PHAT, its scores on its own p_hat <=
+    TOL_CORE, scores <= TOL) and against the chain it replaces, the
+    standalone warp kernel, ``gather_regions`` and the standalone NCC
+    kernel, each of which is held to its own limits on the same inputs;
+    max |fused - chain| <= TOL_CORE (expected 0: the same device
+    functions). Returns the fused scores and warped templates."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    image, base, A, patches = args
+    pm, w1 = 2 * hp_match + 1, 2 * hp_init + 1
+    hp = dict(hp_init=hp_init, hp_match=hp_match)
+    got, warped, p_hat = vision.warp_ncc_score_map_with_templates(*args, **hp)
+    public = vision.warp_ncc_score_map(*args, **hp)
+    want, want_w = vision.warp_ncc_score_map_ref(*args, **hp)
+    regions = vision.gather_regions(image, base, w1 + pm - 1)
+    su, sv = vision.warp_sample_coords(A, hp_init, hp_match)
+    chain_w = vision.warp_bilinear(patches, su, sv)
+    chain_s, chain_p = check_ncc(regions, chain_w, f"chain {label}", errs,
+                                 pm=pm, w1=w1)
+    torch.cuda.synchronize()
+    e_chain_w = float((chain_w - vision.warp_bilinear_ref(patches, su, sv))
+                      .abs().max())
+    errs["warp_bilinear"] = max(errs["warp_bilinear"], e_chain_w)
+    e_warp = float((warped - want_w).abs().max())
+    e_phat = float((p_hat - vision.normalized_templates(want_w)).abs().max())
+    e_core = float((got - vision._ncc_core_ref(regions, p_hat, pm=pm, w1=w1))
+                   .abs().max())
+    e_full = float((got - want).abs().max())
+    d_chain = max(float((got - chain_s).abs().max()),
+                  float((warped - chain_w).abs().max()),
+                  float((p_hat - chain_p).abs().max()))
+    log(f"[check] fused {label}: max|warped-plain|={e_warp:.3e} "
+        f"max|p_hat-plain|={e_phat:.3e} max|scores-plain on its p_hat|="
+        f"{e_core:.3e} max|scores-plain|={e_full:.3e} "
+        f"max|fused-chain|={d_chain:.3e} (chain warp kernel vs plain "
+        f"{e_chain_w:.3e})")
+    for key, e in (("warp_ncc_score_map", e_full), ("warp_ncc_warped", e_warp),
+                   ("warp_ncc_p_hat", e_phat), ("warp_ncc_core", e_core),
+                   ("warp_ncc_chain", d_chain)):
+        errs[key] = max(errs[key], e)
+    if not (e_warp == 0.0 and e_phat <= TOL_PHAT and e_core <= TOL_CORE
+            and e_full <= TOL and d_chain <= TOL_CORE and e_chain_w <= TOL
+            and torch.equal(public[0], got)
+            and torch.equal(public[1], warped)
+            and bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(warped).all())):
+        raise AssertionError(f"fused kernel check failed: {label}")
+    return got, warped
 
 
 def phase_kernel_checks(dev) -> dict:
@@ -368,10 +490,12 @@ def phase_kernel_checks(dev) -> dict:
 
     rng = np.random.default_rng(0)
     errs = {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
-            "warp_bilinear": 0.0}
+            "warp_bilinear": 0.0, "warp_ncc_score_map": 0.0,
+            "warp_ncc_warped": 0.0, "warp_ncc_p_hat": 0.0,
+            "warp_ncc_core": 0.0, "warp_ncc_chain": 0.0}
     for m in (16, 32, 37, 576):
         regions, patches = ncc_inputs(m, rng, dev)
-        got = check_ncc(regions, patches, f"M={m}", errs)
+        got, _ = check_ncc(regions, patches, f"M={m}", errs)
         planted = float(got[0, 3, 4])
         flat = float(got[1:3].abs().max())
         public = vision.ncc_score_map(regions, patches, pm=PM, w1=W1)
@@ -404,10 +528,43 @@ def phase_kernel_checks(dev) -> dict:
     regions, patches = ncc_inputs(m, rng, dev, pm=pm, w1=w1)
     if vision.ncc_launch_plan(m, pm, w1)["compiled"]:
         raise AssertionError("non-default shape took the compiled shape")
-    got = check_ncc(regions, patches, f"pm={pm} w1={w1} M={m}", errs,
-                    pm=pm, w1=w1)
+    got, _ = check_ncc(regions, patches, f"pm={pm} w1={w1} M={m}", errs,
+                       pm=pm, w1=w1)
     if not float(got[0, 3, 4]) >= 0.999:
         raise AssertionError("ncc non-default shape: planted match lost")
+
+    # the fused kernel at every M, then at a shape no configuration uses
+    # (its run-time bounds)
+    for m, hp_init, hp_match in ((16, HP_INIT, HP_MATCH),
+                                 (32, HP_INIT, HP_MATCH),
+                                 (37, HP_INIT, HP_MATCH),
+                                 (576, HP_INIT, HP_MATCH), (37, 6, 4)):
+        pm, w1 = 2 * hp_match + 1, 2 * hp_init + 1
+        plan = vision.warp_ncc_launch_plan(m, pm, w1, w1)
+        if plan["compiled"] != ((hp_init, hp_match) == (HP_INIT, HP_MATCH)):
+            raise AssertionError(f"fused launch plan {plan} at pm={pm}")
+        args = fused_inputs(m, rng, dev, hp_init, hp_match)
+        label = f"M={m} hp_init={hp_init} hp_match={hp_match}"
+        scores, warped = check_fused(args, label, errs, hp_init=hp_init,
+                                     hp_match=hp_match)
+        o = hp_init - hp_match
+        ident = bool(torch.equal(warped[4], args[3][4, o:o + pm, o:o + pm]))
+        edge = float(warped[5, -1].abs().max() + warped[5, :, -1].abs().max())
+        outside = int((warped[6] == 0).sum())
+        singular = float(warped[7:9].abs().max() + scores[7:9].abs().max())
+        corners = args[1][:4].tolist()
+        planted = float(scores[4, 3, 4])
+        log(f"[check] fused {label}: identity warp exact={ident}, edge "
+            f"row/column={edge:.1f}, shear: {outside}/{pm * pm} samples "
+            f"outside, singular warps max|out|={singular:.1f}, corner "
+            f"origins {corners}, planted={planted:.6f}")
+        rg = w1 + pm - 1
+        if not (ident and edge == 0.0 and outside > 0 and singular == 0.0
+                and planted >= 0.999
+                and corners == [[0, 0], [FRAME_W - rg, 0],
+                                [0, FRAME_H - rg],
+                                [FRAME_W - rg, FRAME_H - rg]]):
+            raise AssertionError(f"fused kernel check failed: {label}")
     return errs
 
 
@@ -416,7 +573,7 @@ def phase_kernel_times(dev) -> dict:
     import torch.nn.functional as F
 
     rng = np.random.default_rng(1)
-    out = {"ncc_score_map": {}, "warp_bilinear": {}}
+    out = {"ncc_score_map": {}, "warp_bilinear": {}, "warp_ncc_score_map": {}}
 
     # the launch floor: a kernel that does nothing through the same ctypes
     # path, bare and after allocating the warp's output at M = 576
@@ -477,81 +634,122 @@ def phase_kernel_times(dev) -> dict:
             f"bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
             f"launch floor {floor:.4f} ms "
             f"(kernel / floor = {k / floor:.2f})")
+
+        out["warp_ncc_score_map"][m] = fused_times(m, rng, dev, floor)
     return out
+
+
+def fused_times(m: int, rng, dev, floor: float) -> dict:
+    """The fused kernel at M landmarks beside the chain it replaces, as
+    ``association_rows`` ran it before: ``warp_coords``' arithmetic, the
+    warp wrapper, ``gather_regions`` and the NCC wrapper (device time and
+    host time per call of each), on perturbed frames, warps and patches."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    hp = dict(hp_init=HP_INIT, hp_match=HP_MATCH)
+    image, base, a, patches = fused_inputs(m, rng, dev)
+    sets = [(image + torch.as_tensor(rng.normal(0, 0.01, image.shape)
+                                     .astype(np.float32), device=dev),
+             base, a + torch.as_tensor(rng.normal(0, 0.01, a.shape)
+                                       .astype(np.float32), device=dev),
+             patches + torch.as_tensor(rng.normal(0, 0.01, patches.shape)
+                                       .astype(np.float32), device=dev))
+            for _ in range(N_TIMED)]
+    k, host = time_ms(lambda *x: vision.warp_ncc_score_map(*x, **hp), sets)
+    pre = (torch.empty((m, W1, W1), dtype=torch.float32, device=dev),
+           torch.empty((m, PM, PM), dtype=torch.float32, device=dev))
+    only, _ = time_ms(lambda *x: vision.warp_ncc_score_map(*x, **hp,
+                                                           out=pre), sets)
+    # the same launches on 8 input sets cycled, which stay in the L2 cache:
+    # how much of the kernel's time is its copies' trips to device memory
+    only_l2, _ = time_ms(lambda *x: vision.warp_ncc_score_map(*x, **hp,
+                                                              out=pre),
+                         sets[:8])
+
+    def chain(im, b, a, p):
+        su, sv = vision.warp_sample_coords(a, HP_INIT, HP_MATCH)
+        w = vision.warp_bilinear(p, su, sv)
+        return vision.ncc_score_map(vision.gather_regions(im, b, RG), w,
+                                    pm=PM, w1=W1), w
+    ch, ch_host = time_ms(chain, sets)
+    pl, _ = time_ms(lambda *x: vision.warp_ncc_score_map_ref(*x, **hp), sets)
+    b = warp_ncc_bound(m)
+    res = dict(ms=k, host_ms=host, kernel_only_ms=only,
+               kernel_only_l2_ms=only_l2, chain_ms=ch,
+               chain_host_ms=ch_host, plain_ms=pl, library_ms=None, **b)
+    log(f"[time] fused M={m}: kernel only {only:.4f} ms (inputs in L2: "
+        f"{only_l2:.4f} ms), wrapper {k:.4f} ms "
+        f"(host {host:.4f}); the chain it replaces {ch:.4f} ms (host "
+        f"{ch_host:.4f}); plain {pl:.4f} ms; bound "
+        f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}); launch floor "
+        f"{floor:.4f} ms (kernel / floor = {only / floor:.2f})")
+    return res
 
 
 @contextlib.contextmanager
 def captured_kernel_inputs(n: int = 3):
-    """While active, the matcher's calls of both kernels keep a copy of
-    their first ``n`` argument sets (the real regions, templates and warp
-    coordinates of the run)."""
+    """While active, the matcher's calls of the fused kernel keep a copy of
+    their first ``n`` argument sets (the real frame, region origins, warps
+    and init patches of the run)."""
     from cv_monoslam_tpu_torch.frontend import matching
 
-    captured = {"ncc": [], "warp": []}
-    real_ncc, real_warp = matching.ncc_score_map, matching.warp_bilinear
+    captured = []
+    real = matching.warp_ncc_score_map
 
-    def cap_ncc(regions, patches, **kw):
-        if len(captured["ncc"]) < n:
-            captured["ncc"].append((regions.clone(), patches.clone()))
-        return real_ncc(regions, patches, **kw)
+    def cap(image, base, A, init_patch, **kw):
+        if len(captured) < n:
+            captured.append(((image.clone(), base.clone(), A.clone(),
+                              init_patch.clone()), kw))
+        return real(image, base, A, init_patch, **kw)
 
-    def cap_warp(patches, su, sv):
-        if len(captured["warp"]) < n:
-            captured["warp"].append((patches.clone(), su.clone(),
-                                     sv.clone()))
-        return real_warp(patches, su, sv)
-
-    matching.ncc_score_map, matching.warp_bilinear = cap_ncc, cap_warp
+    matching.warp_ncc_score_map = cap
     try:
         yield captured
     finally:
-        matching.ncc_score_map, matching.warp_bilinear = real_ncc, real_warp
+        matching.warp_ncc_score_map = real
 
 
-def check_captured(captured: dict, errs: dict, label: str, m: int) -> None:
-    """Kernel vs plain on captured frames (launches not counted for the
-    run that captured them: call this after reading the counters)."""
-    from cv_monoslam_tpu_torch.ops import vision
-
-    if len(captured["ncc"]) < 3 or len(captured["warp"]) < 3:
+def check_captured(captured: list, errs: dict, label: str, m: int) -> None:
+    """The fused kernel against its plain version and against the chain of
+    the two standalone kernels (each against its own plain version) on
+    captured frames (launches not counted for the run that captured them:
+    call this after reading the counters)."""
+    if len(captured) < 3:
         raise AssertionError(f"no frames captured {label}")
-    for regions, patches in captured["ncc"]:
-        if regions.shape[0] != m:
-            raise AssertionError(f"ncc ran at M={regions.shape[0]} {label}")
-        check_ncc(regions, patches, label, errs)
-    for patches, su, sv in captured["warp"]:
-        if patches.shape[0] != m:
-            raise AssertionError(f"warp ran at M={patches.shape[0]} {label}")
-        e = float((vision.warp_bilinear(patches, su, sv)
-                   - vision.warp_bilinear_ref(patches, su, sv))
-                  .abs().max())
-        errs["warp_bilinear"] = max(errs["warp_bilinear"], e)
-        log(f"[check] warp {label}: max|kernel-plain|={e:.3e}")
-        if not e <= TOL:
-            raise AssertionError(f"warp kernel disagrees {label}")
+    for args, kw in captured:
+        if args[1].shape[0] != m:
+            raise AssertionError(f"fused kernel ran at M={args[1].shape[0]} "
+                                 f"{label}")
+        check_fused(args, label, errs, **kw)
 
 
 def reset_counters() -> None:
     from cv_monoslam_tpu_torch.ops import vision
 
-    vision.ncc_score_map.launches = 0
-    vision.warp_bilinear.launches = 0
+    for name in KERNELS:
+        getattr(vision, name).launches = 0
     vision.normalized_templates.calls = 0
 
 
 def read_counters() -> dict:
     from cv_monoslam_tpu_torch.ops import vision
 
-    return {"ncc_score_map": vision.ncc_score_map.launches,
-            "warp_bilinear": vision.warp_bilinear.launches,
-            "plain_normalizations": vision.normalized_templates.calls}
+    return dict({name: getattr(vision, name).launches for name in KERNELS},
+                plain_normalizations=vision.normalized_templates.calls)
+
+
+def launches(counts: dict) -> dict:
+    return {name: counts[name] for name in KERNELS}
 
 
 def launch_problems(counts: dict, expected: int, what: str) -> list:
+    """The fused kernel once per tracked frame, the standalone kernels and
+    the plain template normalization never."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["warp_ncc_score_map"] = expected
     problems = [f"{name} launched {counts[name]} times for {expected} "
-                f"tracked frames of {what}"
-                for name in ("ncc_score_map", "warp_bilinear")
-                if counts[name] != expected]
+                f"tracked frames of {what} (wanted {n})"
+                for name, n in want.items() if counts[name] != n]
     if counts["plain_normalizations"]:
         problems.append(f"the plain template normalization ran "
                         f"{counts['plain_normalizations']} times on the "
@@ -580,8 +778,7 @@ def phase_slice(dev, errs: dict) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters()
-    launches = {k: counts[k] for k in ("ncc_score_map", "warp_bilinear")}
-    timed_launches = {k: launches[k] - warm[k] for k in launches}
+    timed_launches = {k: counts[k] - warm[k] for k in KERNELS}
 
     recs = sess.records
     n_timed = len(recs) - n0
@@ -596,7 +793,7 @@ def phase_slice(dev, errs: dict) -> dict:
                matched_min=min(nm), matched_mean=float(np.mean(nm)),
                peak_map=max(r.n_map for r in recs),
                repairs=recs[-1].n_repairs, escalations=recs[-1].n_escalations,
-               skipped=recs[-1].n_skipped, launches=launches,
+               skipped=recs[-1].n_skipped, launches=launches(counts),
                timed_launches=timed_launches,
                plain_normalizations=counts["plain_normalizations"])
     log("[slice] " + json.dumps(res))
@@ -607,7 +804,7 @@ def phase_slice(dev, errs: dict) -> dict:
     if not np.all(np.isfinite(traj)):
         problems.append("non-finite poses")
     for name, n in timed_launches.items():
-        if n != n_timed:
+        if n != (n_timed if name == "warp_ncc_score_map" else 0):
             problems.append(f"{name} launched {n} times in the {n_timed} "
                             f"timed frames")
     if res["escalations"] or res["skipped"]:
@@ -680,7 +877,7 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
         - sum(sess.chunk_detect),
         chunk_detect=sess.chunk_detect,
         stored_inserts=int(sess.state.stored.seq),
-        launches={k: counts[k] for k in ("ncc_score_map", "warp_bilinear")},
+        launches=launches(counts),
         plain_normalizations=counts["plain_normalizations"],
         n_matched=[r.n_matched for r in recs],
         jax_cpu_float32=CONFIG3_JAX_CPU, **extra)
@@ -740,8 +937,7 @@ def phase_redirect(dev) -> dict:
                redirected=[r.frame for r in recs if r.redirected],
                matched_mean_after=float(np.mean(after)), **got,
                expected=REDIRECT_JAX_CPU,
-               launches={k: counts[k] for k in ("ncc_score_map",
-                                                "warp_bilinear")})
+               launches=launches(counts))
     log("[redirect] " + json.dumps(res))
     # the redirect frame itself tracks nothing: no kernel runs on it
     problems = launch_problems(counts, n_frames - 1, "the redirect run")
@@ -910,9 +1106,8 @@ def phase_config4(dev, errs: dict, smi: str) -> dict:
         solver_ms_first={k: (v[0] if v else None)
                          for k, v in solver_ms.items()},
         solver_ms_total=float(sum(sum(v) for v in solver_ms.values())),
-        launches={k: counts_b[k] for k in ("ncc_score_map", "warp_bilinear")},
-        launches_capture_run={k: counts_a[k] for k in ("ncc_score_map",
-                                                       "warp_bilinear")},
+        launches=launches(counts_b),
+        launches_capture_run=launches(counts_a),
         jax_cpu_float32=CONFIG4_JAX_CPU)
     log("[config4] " + json.dumps(res, default=str))
     log(f"[config4] M=16 bench4_lap float32 [{smi}]: filter + capture "
@@ -1051,7 +1246,7 @@ def phase_reference(dev, smi: str) -> dict:
     """The port on the card against the port's ``OracleSLAM`` (the serial
     NumPy transcription of the reference, on the host): (R1) faithful mode
     in float64 over the prefix windows and the first-update posterior;
-    (R2) default mode in float32 with both kernels over 67 frames, ATE
+    (R2) default mode in float32 with the fused kernel over 67 frames, ATE
     band; (R3) faithful mode, 50 frames, match-set statistics. Faithful
     runs take the plain vision versions (``vision_backend="xla"``): the
     kernels take float32."""
@@ -1110,7 +1305,7 @@ def phase_reference(dev, smi: str) -> dict:
                         f"{res['first_update_dx']}, |dP| "
                         f"{res['first_update_dP']}")
 
-    # (R2) default mode, float32, both kernels, M = 16: the ATE band
+    # (R2) default mode, float32, the fused kernel, M = 16: the ATE band
     oracle, sess, track, gt_xy = pair(
         "arc", SlamConfig(max_landmarks=16),
         SlamConfig(max_landmarks=16, dtype="float64"))
@@ -1128,8 +1323,7 @@ def phase_reference(dev, smi: str) -> dict:
     res.update(ate_port=float(sess.ate(gt_xy)), frames=len(recs),
                escalations=recs[-1].n_escalations,
                skipped=recs[-1].n_skipped,
-               launches={k: counts[k] for k in ("ncc_score_map",
-                                                "warp_bilinear")})
+               launches=launches(counts))
     band = 1.2 * res["ate_oracle"] + 0.002
     problems += launch_problems(counts, len(recs), "(R2)")
     if len(recs) < 64 or not res["ate_port"] <= band:
@@ -1379,7 +1573,7 @@ def config1_track(dev, frames: int):
 
 def md_landmark_step(mesh, dev) -> dict:
     """(d) The landmark-layout step on 8 frames of config 1 at world size
-    1: bit for bit the single-device step, both kernels launched by the
+    1: bit for bit the single-device step, the fused kernel launched by the
     sharded path once per frame."""
     from cv_monoslam_tpu_torch.convert import state_to_arrays
     from cv_monoslam_tpu_torch.filter.srukf import slam_step
@@ -1409,8 +1603,7 @@ def md_landmark_step(mesh, dev) -> dict:
         unequal.append("per-frame poses")
     res = dict(frames=frames - 1, unequal=unequal,
                n_matched=outs["n_matched"].tolist(),
-               launches={k: counts[k] for k in ("ncc_score_map",
-                                                "warp_bilinear")},
+               launches=launches(counts),
                plain_normalizations=counts["plain_normalizations"])
     log("[multidevice] (d) landmark-layout step " + json.dumps(res))
     problems = launch_problems(counts, frames - 1,
@@ -1435,7 +1628,7 @@ def md_landmark_step(mesh, dev) -> dict:
 def md_shard_sqrt(mesh, d: dict) -> dict:
     """(f) The ``shard_sqrt`` step (every Gram over S's rows a per-rank
     row-block product summed across the mesh) on (d)'s 8 frames of config
-    1 at world size 1: bit for bit the single-device step, both kernels
+    1 at world size 1: bit for bit the single-device step, the fused kernel
     launched once per frame."""
     from cv_monoslam_tpu_torch.convert import state_to_arrays
     from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
@@ -1453,8 +1646,7 @@ def md_shard_sqrt(mesh, d: dict) -> dict:
     if not np.array_equal(outs["pose"].cpu().numpy(), d["single"]["pose"]):
         unequal.append("per-frame poses")
     res = dict(frames=d["frames"], state_dim=cfg.state_dim, unequal=unequal,
-               launches={k: counts[k] for k in ("ncc_score_map",
-                                                "warp_bilinear")},
+               launches=launches(counts),
                plain_normalizations=counts["plain_normalizations"])
     log("[multidevice] (f) shard_sqrt step, 1 rank " + json.dumps(res))
     problems = launch_problems(counts, d["frames"], "the shard_sqrt step")
@@ -1492,7 +1684,7 @@ def _landmark_rank(dev, state0, images, odo, redirect, cfg, entering):
         out[name] = dict(pose=outs["pose"], x=st.x, S=st.S,
                          active=st.lm.active, matched=st.lm.matched,
                          lid=st.lm.lid, counts=read_counters(),
-                         slots=int(captured["ncc"][0][0].shape[0]))
+                         slots=int(captured[0][0][1].shape[0]))
     steps = []
     layout = state_shardings(mesh, cfg, shard_sqrt=True)
     for k, st in enumerate(entering, start=1):
@@ -1527,7 +1719,7 @@ def md_four_ranks(d: dict, smi: str) -> dict:
                                        .max()) for r in ranks),
                slots_per_rank=[r["slots"] for r in ranks],
                launches_per_rank=[{k: r["counts"][k] for k in
-                                   ("ncc_score_map", "warp_bilinear")}
+                                   KERNELS}
                                   for r in ranks])
     log("[multidevice] (e) four gloo ranks on one card " + json.dumps(res))
     log(f"[multidevice] (e) [{smi}] 4 ranks x 8 slots, {frames} frames of "
@@ -1558,7 +1750,7 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
     it, against the single-device step, to ``tests/test_torch_spmd.py``'s
     tolerances for one step (pose rtol 1e-5 / atol 1e-6, x 1e-4 / 1e-5, S
     1e-3 / 1e-4). The 7 frames run through from frame 0: discrete fields
-    equal to the single-device run, every rank the same, both kernels
+    equal to the single-device run, every rank the same, the fused kernel
     launched by the sharded path on every rank. Its poses are printed, not
     gated: in float32 the rank-summed Grams round otherwise than one
     product, S differs by ~1e-6 after a step, and the filter amplifies
@@ -1577,7 +1769,7 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
                max_abs_diff_run=run_diffs,
                slots_per_rank=[r["slots"] for r in ranks],
                launches_per_rank=[{k: r["counts"][k] for k in
-                                   ("ncc_score_map", "warp_bilinear")}
+                                   KERNELS}
                                   for r in ranks])
     log("[multidevice] (f) shard_sqrt step, four gloo ranks "
         + json.dumps(res))
@@ -1894,6 +2086,11 @@ def main() -> int:
         run(phase_profile, dev, args.config)
 
     meta = {
+        "warp_ncc_score_map": dict(
+            source="cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu",
+            replaces="cv_monoslam_tpu/ops/pallas_vision.py:92 + "
+                     "cv_monoslam_tpu/ops/pallas_vision.py:178 + "
+                     "cv_monoslam_tpu/frontend/matching.py:151-153"),
         "ncc_score_map": dict(
             source="cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu",
             replaces="cv_monoslam_tpu/ops/pallas_vision.py:92"),
@@ -1933,8 +2130,18 @@ def main() -> int:
         if name == "ncc_score_map":
             k.update(max_abs_err_p_hat=errs["ncc_p_hat"],
                      max_abs_err_on_own_p_hat=errs["ncc_core"])
+        if name == "warp_ncc_score_map":
+            k.update(max_abs_err_warped=errs["warp_ncc_warped"],
+                     max_abs_err_p_hat=errs["warp_ncc_p_hat"],
+                     max_abs_err_on_own_p_hat=errs["warp_ncc_core"],
+                     max_abs_diff_chain=errs["warp_ncc_chain"])
+            for sfx, t in (("", t32), ("_m576", t576), ("_m16", t16)):
+                k.update({f"{key}{sfx}": t[key] for key in (
+                    "chain_ms", "chain_host_ms", "kernel_only_l2_ms")})
+        if "kernel_only_ms" in t32:
             k["kernel_only_ms"] = t32["kernel_only_ms"]
             k["kernel_only_ms_m576"] = t576["kernel_only_ms"]
+            k["kernel_only_ms_m16"] = t16["kernel_only_ms"]
         if "grid_sample_ms" in t32:
             k["grid_sample_ms"] = t32["grid_sample_ms"]
             k["grid_sample_ms_m576"] = t576["grid_sample_ms"]

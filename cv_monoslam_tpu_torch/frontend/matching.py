@@ -3,10 +3,13 @@
 Replaces the reference's serial per-landmark loops:
   * patch warp (SLAM.cpp:1804-1906): plane-induced ceiling homography,
     linearized at each feature into a 2x2 affine map, applied as one batched
-    bilinear resample over all landmarks (the ``warp_bilinear`` kernel);
+    bilinear resample over all landmarks;
   * exhaustive NCC search (SLAM.cpp:1915-2009, 3141-3166): all landmarks x
-    all (2*10+1)^2 window offsets scored at once (the ``ncc_score_map``
-    kernel);
+    all (2*10+1)^2 window offsets scored at once. The matcher computes the
+    warp, the region gather and the NCC in one call: on the kernel route
+    one launch (``warp_ncc_score_map``), on "xla" its plain version;
+    ``warp_patches`` and ``ncc_scores`` keep the two steps apart (the
+    ``warp_bilinear`` and ``ncc_score_map`` kernels);
   * chi^2 ellipse gate err^T (Si^T Si)^-1 err < chi2inv(0.95, 6)
     (SLAM.cpp:1975-1977) and the per-landmark window half-sizes
     min(10, max(8, ceil(2*Si_00))) (SLAM.cpp:1952-1955) become masks;
@@ -22,8 +25,10 @@ from ..config import SlamConfig
 from ..filter.state import FilterState, replace
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
-from ..ops.vision import (ncc_score_map, ncc_score_map_ref, warp_bilinear,
-                          warp_bilinear_ref)
+from ..ops.vision import (gather_regions, ncc_score_map, ncc_score_map_ref,
+                          warp_bilinear, warp_bilinear_ref,
+                          warp_ncc_score_map, warp_ncc_score_map_ref,
+                          warp_sample_coords)
 
 
 def _use_kernel(cfg: SlamConfig) -> bool:
@@ -102,23 +107,21 @@ def warp_patches(state: FilterState, cfg: SlamConfig) -> torch.Tensor:
 def warp_coords(state: FilterState, cfg: SlamConfig):
     """Sample positions (su, sv), each (M, Pm, Pm), inside the (Pi, Pi) init
     patch, centred at (hp_init, hp_init)."""
-    hp_m, hp_i = cfg.hp_match, cfg.hp_init
-    A = warp_matrices(state, cfg)                    # (M,2,2)
-    d = torch.arange(-hp_m, hp_m + 1, dtype=state.x.dtype,
-                     device=state.x.device)
-    dv, du = torch.meshgrid(d, d, indexing="ij")     # (Pm,Pm)
-    sv = hp_i + A[:, 0, 0, None, None] * dv + A[:, 0, 1, None, None] * du
-    su = hp_i + A[:, 1, 0, None, None] * dv + A[:, 1, 1, None, None] * du
-    return su, sv
+    return warp_sample_coords(warp_matrices(state, cfg), cfg.hp_init,
+                              cfg.hp_match)
 
 
-def gather_regions(image: torch.Tensor, base: torch.Tensor,
-                   rg: int) -> torch.Tensor:
-    """(H, W) image, (M, 2) region origins (u, v) -> (M, rg, rg) regions."""
-    ar = torch.arange(rg, device=image.device)
-    rows = (base[:, 1, None] + ar)[:, :, None].long()
-    cols = (base[:, 0, None] + ar)[:, None, :].long()
-    return image[rows, cols]
+def region_origins(centers: torch.Tensor, H: int, W: int,
+                   cfg: SlamConfig) -> torch.Tensor:
+    """(M, 2) search-region origins (u, v) for window centres ``centers``,
+    clamped so that each (Rg, Rg) region lies inside the (H, W) frame;
+    offset (dx, dy) of the region is match centre base + (dx, dy) +
+    hp_match."""
+    hp_m, hs = cfg.hp_match, cfg.hp_init        # max half-window = hp_init
+    Rg = 2 * hs + 1 + 2 * hp_m                  # region side, W1 + Pm - 1
+    base = centers - (hs + hp_m)
+    hi = torch.tensor([W - Rg, H - Rg], dtype=base.dtype, device=base.device)
+    return torch.minimum(torch.clamp(base, min=0), hi)
 
 
 def ncc_scores(image: torch.Tensor, centers: torch.Tensor,
@@ -131,17 +134,10 @@ def ncc_scores(image: torch.Tensor, centers: torch.Tensor,
     W1 = 2*hp_init + 1 offsets and scores[m, dy, dx] corresponds to match
     centre (base + (dx, dy) + hp_match).
     """
-    hp_m, hs = cfg.hp_match, cfg.hp_init        # max half-window = hp_init
-    Pm = 2 * hp_m + 1
-    W1 = 2 * hs + 1
-    Rg = W1 + Pm - 1                            # region side
-    H, W = image.shape
-
-    # region origin so that offset (dx,dy) window centre = base + off + hp_m
-    base = centers - (hs + hp_m)
-    hi = torch.tensor([W - Rg, H - Rg], dtype=base.dtype, device=base.device)
-    base = torch.minimum(torch.clamp(base, min=0), hi)
-    regions = gather_regions(image, base, Rg).to(patches.dtype)
+    Pm = 2 * cfg.hp_match + 1
+    W1 = 2 * cfg.hp_init + 1
+    base = region_origins(centers, *image.shape, cfg)
+    regions = gather_regions(image, base, W1 + Pm - 1).to(patches.dtype)
     if _use_kernel(cfg):
         return ncc_score_map(regions, patches, pm=Pm, w1=W1), base
     return ncc_score_map_ref(regions, patches, pm=Pm, w1=W1), base
@@ -157,7 +153,8 @@ def association_rows(state: FilterState, image: torch.Tensor,
                      cfg: SlamConfig):
     """The per-landmark part of :func:`data_association`, for every slot of
     ``state.lm`` (a landmark-sharded step hands each rank a table of its
-    own slots): both kernels, the gates and the NCC peak. Returns
+    own slots): the warp and the NCC search (on the kernel route one
+    launch of the fused kernel), the gates and the NCC peak. Returns
     (accepted before the consensus test, match pixels, warped patches)."""
     dtype = state.x.dtype
     dev = state.x.device
@@ -166,9 +163,11 @@ def association_rows(state: FilterState, image: torch.Tensor,
     W1 = 2 * hs + 1
     H, W = image.shape
 
-    patches = warp_patches(state, cfg)                        # (M,Pm,Pm)
     centers_i = lm.pred.to(torch.int32)                       # trunc, as ref
-    scores, base = ncc_scores(image.to(dtype), centers_i, patches, cfg)
+    base = region_origins(centers_i, H, W, cfg)
+    fn = warp_ncc_score_map if _use_kernel(cfg) else warp_ncc_score_map_ref
+    scores, patches = fn(image.to(dtype), base, warp_matrices(state, cfg),
+                         lm.init_patch.to(dtype), hp_init=hs, hp_match=hp_m)
 
     # offset grid -> absolute window centre pixels
     offs = torch.arange(W1, device=dev, dtype=torch.int32)

@@ -1,9 +1,17 @@
-"""The two vision kernels of the frame loop, their plain versions and their
+"""The vision kernels of the frame loop, their plain versions and their
 wrappers.
 
+* :func:`warp_ncc_score_map` — the one the matcher runs: each landmark's
+  init patch warped by its 2x2 affine map, its search region copied from
+  the frame, and the zero-mean NCC of the warped template over every offset
+  of the region, in one launch (replaces, composed,
+  ``cv_monoslam_tpu/ops/pallas_vision.py::warp_bilinear``, the region slice
+  of ``cv_monoslam_tpu/frontend/matching.py::ncc_scores`` and
+  ``pallas_vision.py::ncc_score_map``); returns the scores and the warped
+  templates;
 * :func:`ncc_score_map` — zero-mean NCC of each landmark's template against
   every offset of its search region, template normalization included
-  (replaces ``cv_monoslam_tpu/ops/pallas_vision.py::ncc_score_map``);
+  (replaces ``pallas_vision.py::ncc_score_map``);
   :func:`ncc_score_map_with_templates` also returns the normalized
   templates, so the normalization and the scores can be checked apart;
 * :func:`warp_bilinear` — bilinear resample of each landmark's init patch at
@@ -33,6 +41,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cvms_ncc_score_map_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cvms_warp_bilinear_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "cvms_warp_ncc_score_map_f32": [_P] * 7 + [_I] * 9 + [_P],
     "cvms_empty_launch": [_P],
 }
 
@@ -249,6 +258,19 @@ ncc_score_map.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def warp_sample_coords(A: torch.Tensor, hp_init: int, hp_match: int):
+    """Sample positions (su, sv), each (M, Pm, Pm) with Pm = 2 hp_match + 1,
+    inside the (Pi, Pi) init patches, centred at (hp_init, hp_init), for the
+    (M, 2, 2) warps ``A`` in the (dv, du) basis. Every torch operation
+    rounds on its own; the fused kernel repeats them in this order without
+    FMA contraction, so both give the same bits."""
+    d = torch.arange(-hp_match, hp_match + 1, dtype=A.dtype, device=A.device)
+    dv, du = torch.meshgrid(d, d, indexing="ij")     # (Pm,Pm)
+    sv = hp_init + A[:, 0, 0, None, None] * dv + A[:, 0, 1, None, None] * du
+    su = hp_init + A[:, 1, 0, None, None] * dv + A[:, 1, 1, None, None] * du
+    return su, sv
+
+
 def warp_bilinear_ref(patches: torch.Tensor, su: torch.Tensor,
                       sv: torch.Tensor) -> torch.Tensor:
     """Plain version: (M, Pi, Pi) patches sampled at (M, Po, Po) fractional
@@ -298,3 +320,180 @@ def warp_bilinear(patches: torch.Tensor, su: torch.Tensor,
 
 
 warp_bilinear.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Warp + region + NCC, fused
+# ---------------------------------------------------------------------------
+
+WARP_NCC_COMPILED_SHAPE = (17, 21, 21)   # (pm, w1, pi), unrolled loops
+
+
+def gather_regions(image: torch.Tensor, base: torch.Tensor,
+                   rg: int) -> torch.Tensor:
+    """(H, W) image, (M, 2) region origins (u, v) -> (M, rg, rg) regions."""
+    ar = torch.arange(rg, device=image.device)
+    rows = (base[:, 1, None] + ar)[:, :, None].long()
+    cols = (base[:, 0, None] + ar)[:, None, :].long()
+    return image[rows, cols]
+
+
+def _warp_regions_ref(image, base, A, init_patch, hp_init: int,
+                      hp_match: int):
+    """The plain chain up to the NCC: (warped templates, regions, pm, w1)."""
+    pm, w1 = 2 * hp_match + 1, 2 * hp_init + 1
+    su, sv = warp_sample_coords(A, hp_init, hp_match)
+    warped = warp_bilinear_ref(init_patch, su, sv)
+    regions = gather_regions(image, base, w1 + pm - 1).to(warped.dtype)
+    return warped, regions, pm, w1
+
+
+def warp_ncc_score_map_ref(image: torch.Tensor, base: torch.Tensor,
+                           A: torch.Tensor, init_patch: torch.Tensor, *,
+                           hp_init: int, hp_match: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the coordinates of :func:`warp_sample_coords`,
+    :func:`warp_bilinear_ref`, :func:`gather_regions` and
+    :func:`ncc_score_map_ref`, in that order — exactly what the matcher
+    computed before the three were fused. Returns (scores (M, W1, W1),
+    warped templates (M, Pm, Pm))."""
+    warped, regions, pm, w1 = _warp_regions_ref(image, base, A, init_patch,
+                                                hp_init, hp_match)
+    return ncc_score_map_ref(regions, warped, pm=pm, w1=w1), warped
+
+
+def warp_ncc_launch_plan(m: int, pm: int, w1: int, pi: int) -> dict:
+    """How the fused kernel is launched for M landmarks: the NCC kernel's
+    block (:func:`ncc_launch_plan`) with the (pi, pi) init patch staged
+    after its layout. Returns ``compiled`` (the unrolled (17, 21, 21)
+    instantiation, else the run-time bounds of the same kernel),
+    ``threads`` and ``smem_bytes``; raises ValueError where the block's
+    shared memory exceeds NCC_SMEM_LIMIT."""
+    if pi < 2:
+        raise ValueError(f"warp_ncc_score_map: init patch side {pi} < 2")
+    plan = ncc_launch_plan(m, pm, w1)
+    smem = plan["smem_bytes"] + 4 * pi * pi
+    if smem > NCC_SMEM_LIMIT:
+        raise ValueError(f"warp_ncc_score_map: needs {smem} B of shared "
+                         f"memory (> {NCC_SMEM_LIMIT} B)")
+    return dict(compiled=(pm, w1, pi) == WARP_NCC_COMPILED_SHAPE,
+                threads=plan["threads"], smem_bytes=smem)
+
+
+def _warp_ncc_check_shapes(image, base, A, init_patch, hp_init: int,
+                           hp_match: int) -> Tuple[int, int]:
+    """Shapes and device of the fused wrapper's inputs; returns (pm, w1)."""
+    pm, w1 = 2 * hp_match + 1, 2 * hp_init + 1
+    rg = w1 + pm - 1
+    m = base.shape[0] if base.dim() == 2 else -1
+    if (hp_init < 0 or hp_match < 0 or image.dim() != 2
+            or base.shape != (m, 2) or A.shape != (m, 2, 2)
+            or init_patch.dim() != 3 or init_patch.shape[0] != m
+            or init_patch.shape[1] != init_patch.shape[2]
+            or min(image.shape) < rg):
+        raise ValueError(
+            f"warp_ncc_score_map: shapes image {tuple(image.shape)}, base "
+            f"{tuple(base.shape)}, A {tuple(A.shape)}, init_patch "
+            f"{tuple(init_patch.shape)} for hp_init={hp_init}, "
+            f"hp_match={hp_match}")
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"warp_ncc_score_map: no kernel for {image.device}")
+    return pm, w1
+
+
+def _warp_ncc_check_types(image, base, A, init_patch, *outs) -> None:
+    """What the CUDA kernel takes: one device, float32 frame, warps,
+    patches and outputs, int32 origins, all contiguous."""
+    _check_cuda("warp_ncc_score_map", image, A, init_patch, *outs)
+    if base.device != image.device:
+        raise ValueError("warp_ncc_score_map: tensors on different devices")
+    if base.dtype != torch.int32:
+        raise TypeError(f"warp_ncc_score_map: CUDA kernel takes int32 "
+                        f"region origins, got {base.dtype}")
+    if not base.is_contiguous():
+        raise ValueError("warp_ncc_score_map: tensors must be contiguous")
+
+
+def _warp_ncc_cuda(image, base, A, init_patch, scores, warped, p_hat,
+                   pm: int, w1: int) -> None:
+    """The one kernel launch of the fused wrappers; ``p_hat`` None: the
+    kernel keeps the normalized templates on chip only."""
+    m, pi = base.shape[0], init_patch.shape[-1]
+    plan = warp_ncc_launch_plan(m, pm, w1, pi)
+    outs = (scores, warped) if p_hat is None else (scores, warped, p_hat)
+    _warp_ncc_check_types(image, base, A, init_patch, *outs)
+    _launch("warp_ncc_score_map", "cvms_warp_ncc_score_map_f32",
+            image.device, image.data_ptr(), base.data_ptr(), A.data_ptr(),
+            init_patch.data_ptr(), scores.data_ptr(), warped.data_ptr(),
+            None if p_hat is None else p_hat.data_ptr(), m, image.shape[0],
+            image.shape[1], pm, w1, pi, plan["threads"], plan["smem_bytes"],
+            int(plan["compiled"]))
+    warp_ncc_score_map.launches += 1
+
+
+def _empty(dev: torch.device, *shapes) -> tuple:
+    return tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                 for s in shapes)
+
+
+def warp_ncc_score_map(
+        image: torch.Tensor, base: torch.Tensor, A: torch.Tensor,
+        init_patch: torch.Tensor, *, hp_init: int, hp_match: int,
+        out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(scores, warped)``: each landmark's (Pi, Pi) init patch warped by
+    its (2, 2) map ``A`` at the (Pm, Pm) sample grid of
+    :func:`warp_sample_coords` (Pm = 2 hp_match + 1), and the zero-mean NCC
+    scores (M, W1, W1), W1 = 2 hp_init + 1, of that warped template over
+    the (Rg, Rg) region of the (H, W) frame ``image`` at origin ``base``
+    (M, 2) (u, v), Rg = W1 + Pm - 1.
+
+    On CUDA tensors one launch computes both (and no torch arithmetic runs
+    before it): a float32 frame, warps and patches, int32 origins, all
+    contiguous; ``out`` gives preallocated float32 outputs. On CPU tensors
+    this is exactly :func:`warp_ncc_score_map_ref`.
+
+    Every origin must lie in [0, W - Rg] x [0, H - Rg], as
+    :func:`~cv_monoslam_tpu_torch.frontend.matching.region_origins` makes
+    them; no check reads them back from the device. An origin outside
+    gives undefined results: the kernel clamps it into the frame (it never
+    reads out of bounds), the plain version wraps a negative index or
+    raises past the edge."""
+    pm, w1 = _warp_ncc_check_shapes(image, base, A, init_patch, hp_init,
+                                    hp_match)
+    if image.device.type == "cpu":
+        return warp_ncc_score_map_ref(image, base, A, init_patch,
+                                      hp_init=hp_init, hp_match=hp_match)
+    m = base.shape[0]
+    if out is None:
+        out = _empty(image.device, (m, w1, w1), (m, pm, pm))
+    scores, warped = out
+    if scores.shape != (m, w1, w1) or warped.shape != (m, pm, pm):
+        raise ValueError(f"warp_ncc_score_map: output shapes "
+                         f"{tuple(scores.shape)}, {tuple(warped.shape)}")
+    _warp_ncc_cuda(image, base, A, init_patch, scores, warped, None, pm, w1)
+    return scores, warped
+
+
+warp_ncc_score_map.launches = 0
+
+
+def warp_ncc_score_map_with_templates(
+        image: torch.Tensor, base: torch.Tensor, A: torch.Tensor,
+        init_patch: torch.Tensor, *, hp_init: int, hp_match: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(scores, warped, p_hat)``: :func:`warp_ncc_score_map`'s outputs
+    and the normalized templates the scores were computed against, from
+    the same one launch on CUDA tensors (for the checks). On CPU tensors:
+    the plain chain with the normalization taken apart."""
+    pm, w1 = _warp_ncc_check_shapes(image, base, A, init_patch, hp_init,
+                                    hp_match)
+    if image.device.type == "cpu":
+        warped, regions, pm, w1 = _warp_regions_ref(
+            image, base, A, init_patch, hp_init, hp_match)
+        p_hat = normalized_templates(warped)
+        return _ncc_core_ref(regions, p_hat, pm=pm, w1=w1), warped, p_hat
+    m = base.shape[0]
+    outs = _empty(image.device, (m, w1, w1), (m, pm, pm), (m, pm, pm))
+    _warp_ncc_cuda(image, base, A, init_patch, *outs, pm, w1)
+    return outs
