@@ -34,6 +34,28 @@ non-zero and prints no result):
    launches on perturbed inputs): wrapper, kernel only into preallocated
    outputs, host enqueue time, plain version, bound; for the fused kernel
    also the chain it replaces (device and host time per call);
+3b. chunk graphs: each full chunk of ``SlamSession.run`` / ``step_chunk``
+   is one captured CUDA graph with the filter's gates as conditional nodes
+   on the device. The two recurrence kernels (``store_slots``,
+   ``gftt_greedy_nms``, ``csrc/scan_kernels.cu``) equal their plain
+   versions exactly on seeded inputs (dup, free and eviction tables; K =
+   48, 768 and 77) and on inputs captured from the eager runs below. Then
+   for config 1 (chunk 32), config 3 (chunk 8, the detect and the tracking
+   graph) and config 4's filter (chunk 8): (a) one window from one state
+   through the graph and through an eager chunk (the private switch
+   ``_graphs``): telemetry rows and final state compared, every discrete
+   result equal, a float difference named; (b) ``_dispatch_chunk`` under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the synchronizing calls
+   of a dispatch and of its finish counted (0 in the dispatch); (c) the
+   launches of one replayed chunk (the fused kernel once per frame, the
+   standalone ones never; every kernel counts its launches on the device);
+   (e) capture seconds per graph, frames/s of ``run`` by both routes over
+   the same windows from the same state (graph, eager, eager, graph), peak
+   memory of each, and what the graph pool and the conditional bodies'
+   pool hold after the captures. Phases 4-8 and 11 below run their chunks
+   through the graphs too; their launch counts are read on the device,
+   and the fused kernel's captured inputs are read from the graph's
+   tensors after the first replay and after the last;
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
    timed after a warm-up chunk; checks the launch counters (the fused
@@ -153,9 +175,11 @@ PM, W1, PI = 17, 21, 21   # match patch, NCC offsets, init patch (defaults)
 RG = W1 + PM - 1
 HP_MATCH, HP_INIT = PM // 2, W1 // 2
 FRAME_H, FRAME_W = 480, 640   # the camera's frame (every configuration)
-#: the kernels' launch counters: the fused one the matcher runs, and the
-#: two standalone ones, which the main path must no longer launch
+#: the vision kernels: the fused one the matcher runs, and the two
+#: standalone ones, which the main path must no longer launch
 KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear")
+#: the two recurrences of csrc/scan_kernels.cu
+SCAN_KERNELS = ("store_slots", "gftt_greedy_nms")
 
 #: config 3 of ``bench.py`` (``bench_large`` -> ``scripts/bench_large.py``)
 CONFIG3 = dict(max_landmarks=576, max_new_per_frame=64, max_detections=768,
@@ -492,7 +516,8 @@ def phase_kernel_checks(dev) -> dict:
     errs = {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
             "warp_bilinear": 0.0, "warp_ncc_score_map": 0.0,
             "warp_ncc_warped": 0.0, "warp_ncc_p_hat": 0.0,
-            "warp_ncc_core": 0.0, "warp_ncc_chain": 0.0}
+            "warp_ncc_core": 0.0, "warp_ncc_chain": 0.0,
+            "store_slots": 0, "gftt_greedy_nms": 0}
     for m in (16, 32, 37, 576):
         regions, patches = ncc_inputs(m, rng, dev)
         got, _ = check_ncc(regions, patches, f"M={m}", errs)
@@ -686,60 +711,126 @@ def fused_times(m: int, rng, dev, floor: float) -> dict:
     return res
 
 
-@contextlib.contextmanager
-def captured_kernel_inputs(n: int = 3):
-    """While active, the matcher's calls of the fused kernel keep a copy of
-    their first ``n`` argument sets (the real frame, region origins, warps
-    and init patches of the run)."""
-    from cv_monoslam_tpu_torch.frontend import matching
+class _Captured(list):
+    """Argument sets of the fused kernel's calls (see
+    :func:`captured_kernel_inputs`); ``arm()`` starts the collection."""
 
-    captured = []
+    def __init__(self, n: int, armed: bool):
+        super().__init__()
+        self.n, self.armed = n, armed
+        self.nodes = {}          # graph key -> clones the graph makes
+
+    def arm(self) -> None:
+        self.armed = True
+
+    def late(self) -> list:
+        """Copies of the graphs' clones as they stand now: the argument sets
+        of the last replay of every graph captured meanwhile (its last
+        window's first ``n`` frames)."""
+        return [(tuple(a.clone() for a in args), kw)
+                for nodes in self.nodes.values() for args, kw in nodes]
+
+
+@contextlib.contextmanager
+def captured_kernel_inputs(n: int = 3, armed: bool = True):
+    """While active (and armed), the matcher's calls of the fused kernel
+    keep their first ``n`` argument sets (the real frame, region origins,
+    warps and init patches of the run), as the eager route made them
+    before the chunk graphs: an eager call's as copies. A graph captured
+    meanwhile clones the arguments of its first ``n`` calls at that frame
+    (nodes of the graph, so every replay overwrites them); right after a
+    replay of that graph they are copied out once more, the values of that
+    replay's frames, and ``late()`` copies them out after the last replay.
+    A warm-up's calls (a blank window) are not kept. ``armed=False``:
+    nothing is kept until ``arm()``."""
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.frontend import matching
+    from cv_monoslam_tpu_torch.ops import control
+
+    captured = _Captured(n, armed)
     real = matching.warp_ncc_score_map
+    real_capture = SlamSession._capture_chunk
+    real_dispatch = SlamSession._dispatch_chunk
+    key = [None]
 
     def cap(image, base, A, init_patch, **kw):
-        if len(captured) < n:
-            captured.append(((image.clone(), base.clone(), A.clone(),
-                              init_patch.clone()), kw))
+        args = (image, base, A, init_patch)
+        if control.warming():
+            pass
+        elif control.capturing() is not None:
+            nodes = captured.nodes.setdefault(key[0], [])
+            if len(nodes) < n:
+                nodes.append((tuple(a.clone() for a in args), kw))
+        elif captured.armed and len(captured) < n:
+            captured.append((tuple(a.clone() for a in args), kw))
         return real(image, base, A, init_patch, **kw)
 
+    def capture(self, k, detect):
+        key[0] = (id(self), k, detect)
+        try:
+            return real_capture(self, k, detect)
+        finally:
+            key[0] = None
+
+    def dispatch(self, k):
+        out = real_dispatch(self, k)
+        nodes = out and captured.nodes.get(
+            (id(self), out["k"], self.chunk_detect[-1]))
+        if nodes and captured.armed:
+            # queued after this replay, before the next one
+            for args, kw in nodes[:n - len(captured)]:
+                captured.append((tuple(a.clone() for a in args), kw))
+        return out
+
     matching.warp_ncc_score_map = cap
+    SlamSession._capture_chunk = capture
+    SlamSession._dispatch_chunk = dispatch
     try:
         yield captured
     finally:
         matching.warp_ncc_score_map = real
+        SlamSession._capture_chunk = real_capture
+        SlamSession._dispatch_chunk = real_dispatch
 
 
-def check_captured(captured: list, errs: dict, label: str, m: int) -> None:
+def check_captured(captured: "_Captured", errs: dict, label: str,
+                   m: int) -> None:
     """The fused kernel against its plain version and against the chain of
     the two standalone kernels (each against its own plain version) on
-    captured frames (launches not counted for the run that captured them:
-    call this after reading the counters)."""
+    captured frames: the run's first ones and, where the run went through
+    chunk graphs, those of each graph's last replay (launches not counted
+    for the run that captured them: call this after reading the counters
+    and after the run's last chunk)."""
     if len(captured) < 3:
         raise AssertionError(f"no frames captured {label}")
-    for args, kw in captured:
-        if args[1].shape[0] != m:
-            raise AssertionError(f"fused kernel ran at M={args[1].shape[0]} "
-                                 f"{label}")
-        check_fused(args, label, errs, **kw)
+    for frames, where in ((captured, label),
+                          (captured.late(), f"{label} (last replay)")):
+        for args, kw in frames:
+            if args[1].shape[0] != m:
+                raise AssertionError(f"fused kernel ran at "
+                                     f"M={args[1].shape[0]} {where}")
+            check_fused(args, where, errs, **kw)
 
 
 def reset_counters() -> None:
     from cv_monoslam_tpu_torch.ops import vision
 
-    for name in KERNELS:
-        getattr(vision, name).launches = 0
     vision.normalized_templates.calls = 0
+    vision.reset_device_counts(torch.device("cuda:0"))
 
 
 def read_counters() -> dict:
+    """Every kernel's launches, counted on the device (also under graph
+    replay and inside conditional bodies; one device read), and the plain
+    normalization's calls."""
     from cv_monoslam_tpu_torch.ops import vision
 
-    return dict({name: getattr(vision, name).launches for name in KERNELS},
+    return dict(vision.device_counts(torch.device("cuda:0")),
                 plain_normalizations=vision.normalized_templates.calls)
 
 
 def launches(counts: dict) -> dict:
-    return {name: counts[name] for name in KERNELS}
+    return {name: counts[name] for name in KERNELS + SCAN_KERNELS}
 
 
 def launch_problems(counts: dict, expected: int, what: str) -> list:
@@ -755,6 +846,419 @@ def launch_problems(counts: dict, expected: int, what: str) -> list:
                         f"{counts['plain_normalizations']} times on the "
                         f"CUDA path of {what}")
     return problems
+
+
+# ---------------------------------------------------------------------------
+# the two recurrences of csrc/scan_kernels.cu
+# ---------------------------------------------------------------------------
+
+
+def store_inputs(case: str, rng, dev, m: int = 576, s: int = 64):
+    """(mask, lid, valid, tlid, stamp, seq) for ``store_slots``: ``free`` a
+    half-empty table, ``dup`` records that refresh stored landmarks (one
+    twice in the batch), ``evict`` a full table with more records than
+    slots."""
+    valid = np.ones(s, bool)
+    tlid = (1000 + np.arange(s)).astype(np.int32)
+    stamp = rng.permutation(s).astype(np.int32)
+    seq = s
+    lid = (2000 + np.arange(m)).astype(np.int32)
+    mask = rng.random(m) < 0.1
+    if case == "free":
+        valid[rng.random(s) < 0.5] = False
+    elif case == "dup":
+        pick = rng.choice(m, 12, replace=False)
+        lid[pick] = tlid[rng.choice(s, 12)]
+        lid[pick[1]] = lid[pick[0]]
+        mask[pick] = True
+    else:
+        mask = rng.random(m) < 0.3
+    t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
+    return (t(mask, bool), t(lid, np.int32), t(valid, bool),
+            t(tlid, np.int32), t(stamp, np.int32), t(seq, np.int32))
+
+
+def greedy_inputs(k: int, rng, dev):
+    """(pix, cand) for ``gftt_greedy_nms``: integer pixels crowded into a
+    quarter of the frame (many within min_dist of each other), the last
+    tenth not candidates."""
+    pix = np.stack([rng.integers(0, FRAME_W // 2, k),
+                    rng.integers(0, FRAME_H // 2, k)], 1).astype(np.float32)
+    cand = np.arange(k) < k - k // 10
+    return (torch.as_tensor(pix, device=dev),
+            torch.as_tensor(cand, device=dev))
+
+
+def check_scan(name: str, args, label: str, errs: dict, **kw) -> None:
+    """One launch of ``name`` against its plain version: equal exactly."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    got = getattr(vision, name)(*args, **kw)
+    want = getattr(vision, f"{name}_ref")(*args, **kw)
+    torch.cuda.synchronize()
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    errs[name] = max(errs.get(name, 0), bad)
+    log(f"[check] {name} {label}: {bad} entries differ from the plain "
+        f"version")
+    if bad:
+        raise AssertionError(f"{name} != its plain version {label}")
+
+
+def store_bound(args) -> dict:
+    """Bytes of the inputs and outputs; operations: three comparisons and
+    three minimum steps per table slot for each stored record."""
+    mask, lid, valid, tlid, stamp, seq = args
+    m, s = mask.shape[0], valid.shape[0]
+    nbytes = (m + 4 * m) + (s + 8 * s + 4) + (4 * m + 9 * s + 4)
+    stored = int(mask.sum())
+    return _bound(nbytes, 6 * s * stored)
+
+
+def greedy_bound(args, min_dist2: float) -> dict:
+    """Bytes of pixels, flags, kept and ranks; operations: five per test of
+    a candidate against an earlier kept corner (what this input needs)."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    pix, cand = args
+    k = cand.shape[0]
+    kept, _ = vision.gftt_greedy_nms_ref(pix, cand, min_dist2)
+    before = torch.cumsum(kept.to(torch.int64), 0) - kept.to(torch.int64)
+    tests = int((before * cand.to(torch.int64)).sum())
+    return _bound(8 * k + k + k + 4 * k, 5 * tests + k)
+
+
+def plain_ms(fn, args, reps: int = 3) -> float:
+    """Median wall time of a plain version that is a host loop of small
+    device operations (host clock, synchronized at both ends)."""
+    fn(*args)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def scan_times(dev, floor: float, runs: dict) -> dict:
+    """Kernel and plain times of the two recurrences on inputs the runs of
+    phase 3b gave them (``runs``: config -> captured argument sets), at the
+    main path's shapes: store_slots at config 3 (M = 576, S = 64), the
+    greedy pass at config 1 (K = 48) and config 3 (K = 768); and
+    store_slots on a full table with 30 % of 576 records stored (the
+    heaviest store a frame could ask for). The kernels by :func:`time_ms`;
+    the plain versions, host loops of small operations, by
+    :func:`plain_ms`. Bounds count what each input needs."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    out = {}
+    cases = (("store_slots", runs["config3"]["store_slots"][0]),
+             ("store_slots_heavy",
+              store_inputs("evict", np.random.default_rng(5), dev)),
+             ("gftt_greedy_nms_k48", runs["config1"]["gftt_greedy_nms"][0]),
+             ("gftt_greedy_nms_k768",
+              runs["config3"]["gftt_greedy_nms"][0]))
+    for name, args in cases:
+        if name.startswith("store"):
+            fn, ref, b = (vision.store_slots, vision.store_slots_ref,
+                          store_bound(args))
+            what = f"M={args[0].shape[0]} S={args[2].shape[0]}, " \
+                   f"{int(args[0].sum())} stored"
+        else:
+            md2 = args[2]
+            args = args[:2]
+            fn = lambda p, c, md2=md2: vision.gftt_greedy_nms(p, c, md2)
+            ref = lambda p, c, md2=md2: vision.gftt_greedy_nms_ref(p, c, md2)
+            b = greedy_bound(args, md2)
+            what = f"K={args[1].shape[0]}"
+        k, host = time_ms(fn, [args] * N_TIMED)
+        pl = plain_ms(ref, args)
+        out[name] = dict(ms=k, host_ms=host, plain_ms=pl, library_ms=None,
+                         shape=what, **b)
+        log(f"[time] {name} {what}: kernel {k:.4f} ms (host {host:.4f}), "
+            f"plain {pl:.4f} ms, bound {b['bound_ms'] * 1e3:.4f} us "
+            f"({b['bound_by']}), launch floor {floor:.4f} ms")
+    return out
+
+
+@contextlib.contextmanager
+def captured_scan_inputs(n: int = 4):
+    """While active, keep copies of the first ``n`` argument sets of each
+    recurrence kernel's eager calls (a warm-up's and a capture's are
+    skipped: the warm-up runs on a blank window, and a captured call's
+    tensors hold nothing until a replay)."""
+    from cv_monoslam_tpu_torch.ops import control, vision
+
+    got = {"store_slots": [], "gftt_greedy_nms": []}
+    real = {name: getattr(vision, name) for name in got}
+
+    def hook(name):
+        def cap(*args):
+            if (len(got[name]) < n and not control.warming()
+                    and control.capturing() is None):
+                got[name].append(tuple(a.clone() if isinstance(
+                    a, torch.Tensor) else a for a in args))
+            return real[name](*args)
+        return cap
+
+    for name in got:
+        setattr(vision, name, hook(name))
+    try:
+        yield got
+    finally:
+        for name, fn in real.items():
+            setattr(vision, name, fn)
+
+
+def state_equal(a, b) -> Tuple[list, dict]:
+    """Fields of two filter states that differ: (discrete ones, max |diff|
+    of each float one)."""
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+
+    sa, sb = state_to_arrays(a), state_to_arrays(b)
+    discrete, floats = [], {}
+    for key in sa:
+        x, y = sa[key], sb[key]
+        if np.array_equal(x, y, equal_nan=True):
+            continue
+        if np.issubdtype(x.dtype, np.floating):
+            floats[key] = float(np.nanmax(np.abs(x.astype(np.float64)
+                                                 - y.astype(np.float64))))
+        else:
+            discrete.append(key)
+    return discrete, floats
+
+
+def graph_vs_eager(sess, chunk: int, label: str) -> dict:
+    """(a) One window from one state through the graph and through an eager
+    chunk (the private switch ``_graphs``): telemetry rows and final states
+    compared. (b) The graph's dispatch under ``set_sync_debug_mode
+    ("error")``. The eager run's recurrence inputs are kept for (d)."""
+    from cv_monoslam_tpu_torch.api import _unpack_row
+    from cv_monoslam_tpu_torch.ops import control
+
+    c0, matched0 = sess.counter, sess._last_matched
+    s0 = control.tree_map(torch.clone, sess.state)
+    torch.cuda.synchronize()
+    runs = {}
+    for route in ("graph", "eager"):
+        sess._graphs = route == "graph"
+        sess.state = control.tree_map(torch.clone, s0)
+        sess.counter, sess._last_matched = c0, matched0
+        if route == "graph":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = sess._dispatch_chunk(chunk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            scans = None
+        else:
+            with captured_scan_inputs() as scans:
+                pending = sess._dispatch_chunk(chunk)
+        n0 = len(sess.records)
+        sess._finish_chunk(pending)
+        runs[route] = (pending["rows"].numpy().copy(),
+                       control.tree_map(torch.clone, sess.state), scans,
+                       sess.records[n0:])
+    sess._graphs = True
+    rg, sg, _, recs_g = runs["graph"]
+    re_, se, scans, recs_e = runs["eager"]
+    discrete, floats = state_equal(sg, se)
+    M = sess.cfg.max_landmarks
+    row_diff = float(np.abs(rg.astype(np.float64) - re_).max())
+    tele_discrete = [
+        key for key in ("n_map", "n_visible", "n_matched", "redirected",
+                        "health", "repairs", "lm_lid", "lm_active",
+                        "lm_matched")
+        if not all(np.array_equal(_unpack_row(rg[i], M)[key],
+                                  _unpack_row(re_[i], M)[key])
+                   for i in range(rg.shape[0]))]
+    res = dict(label=label, chunk=chunk, detect=sess.chunk_detect[-1],
+               rows_equal=bool(np.array_equal(rg, re_)),
+               rows_max_abs_diff=row_diff,
+               state_equal=not discrete and not floats,
+               state_discrete_differ=discrete, state_float_max_diff=floats,
+               telemetry_discrete_differ=tele_discrete,
+               matched=[r.n_matched for r in recs_g],
+               dispatch_syncs=0)
+    log(f"[graphs] (a)+(b) {label} detect={res['detect']}: rows equal "
+        f"{res['rows_equal']} (max |diff| {row_diff:.3e}), state equal "
+        f"{res['state_equal']} {floats if floats else ''}; dispatch under "
+        f"set_sync_debug_mode('error'): no synchronizing call")
+    if discrete or tele_discrete:
+        raise AssertionError(f"graph != eager in discrete results "
+                             f"{discrete + tele_discrete} ({label})")
+    return res, scans
+
+
+def dispatch_census(sess, chunk: int) -> Tuple[int, int]:
+    """Synchronizing calls of one dispatch and of its finish, counted by
+    ``set_sync_debug_mode("warn")``."""
+    import warnings
+
+    counts = []
+    for step in ("dispatch", "finish"):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                if step == "dispatch":
+                    pending = sess._dispatch_chunk(chunk)
+                else:
+                    sess._finish_chunk(pending)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("called a synchronizing CUDA operation"
+                          in str(x.message) for x in w))
+    return counts[0], counts[1]
+
+
+def pool_footprint(sess) -> dict:
+    """Bytes the card holds for the session's graphs, read after their
+    captures: reserved by the graph pool they share and by the pool of
+    their conditional bodies (segments of ``torch.cuda.memory_snapshot()``
+    by pool id), and ``memory_reserved()`` of the whole process."""
+    pools = {"graph_pool": tuple(sess._pool),
+             "body_pool": tuple(sess._body_pool.id)}
+    out = dict.fromkeys(pools, 0)
+    for seg in torch.cuda.memory_snapshot():
+        for name, pid in pools.items():
+            if tuple(seg["segment_pool_id"]) == pid:
+                out[name] += seg["total_size"]
+    out["memory_reserved"] = torch.cuda.memory_reserved()
+    return out
+
+
+def routes_fps(sess, start, chunk: int, n_chunks: int) -> dict:
+    """(e) frames/s and peak memory of the graph route and the eager route,
+    each running ``run(chunk=...)`` over the same ``n_chunks`` windows from
+    the same ``start`` (counter, state, last match count), in the order
+    graph / eager / eager / graph."""
+    from cv_monoslam_tpu_torch.ops import control
+
+    c0, s0, matched0 = start
+    out = {"graph": [], "eager": [], "graph_peak": 0, "eager_peak": 0}
+    for route in ("graph", "eager", "eager", "graph"):
+        sess._graphs = route == "graph"
+        sess.state = control.tree_map(torch.clone, s0)
+        sess.counter, sess._last_matched = c0, matched0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = len(sess.records)
+        t0 = time.perf_counter()
+        sess.run(n_frames=n_chunks * chunk, chunk=chunk, drop_tail=True)
+        torch.cuda.synchronize()
+        out[route].append((len(sess.records) - n0)
+                          / (time.perf_counter() - t0))
+        out[f"{route}_peak"] = max(out[f"{route}_peak"],
+                                   torch.cuda.max_memory_allocated())
+    sess._graphs = True
+    return out
+
+
+def phase_chunk_graphs(dev, errs: dict, floor: float) -> dict:
+    """The chunk machinery on the card: for config 1 (chunk 32), config 3
+    (chunk 8, both detect keys) and config 4's filter (chunk 8): (a) graph
+    equals eager, (b) no synchronizing call in a dispatch, (c) one fused
+    launch per tracked frame under replay, (d) the two recurrence kernels
+    against their plain versions on seeded and captured inputs, (e)
+    capture time per graph, frames/s of both routes, peak memory."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+    from cv_monoslam_tpu_torch.ops import control
+
+    rng = np.random.default_rng(9)
+    for case in ("free", "dup", "evict"):
+        check_scan("store_slots", store_inputs(case, rng, dev),
+                   f"seeded {case}", errs)
+    for k in (48, 768, 77):
+        check_scan("gftt_greedy_nms", greedy_inputs(k, rng, dev),
+                   f"seeded K={k}", errs, min_dist2=100.0)
+
+    out = {}
+    scans_all = {"store_slots": [], "gftt_greedy_nms": []}
+    runs = {}
+    setups = (
+        ("config1", "bench1_arc", {}, CONFIG1, 32, [None]),
+        ("config3", "bench3_grid", dict(min_step_xy=0.005), CONFIG3, 8,
+         [0, 10 ** 6]),
+        ("config4", "bench4_lap", {}, CONFIG4, 8, [None]))
+    for name, fixture, fkw, ckw, chunk, gates in setups:
+        seq, track, _, _ = fixtures.load(fixture, **fkw)
+        cfg = SlamConfig(**ckw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sess = SlamSession(cfg, seq, track, device=dev)
+        sess.step_chunk(chunk)                        # captures (chunk, True)
+        start = (sess.counter, control.tree_map(torch.clone, sess.state),
+                 sess._last_matched)
+        res = dict(checks=[])
+        for gate in gates:
+            if gate is not None:
+                sess.detect_host_gate = True
+                sess._last_matched = gate
+                sess.step_chunk(chunk)                # captures this key
+                sess._last_matched = gate
+            r, scans = graph_vs_eager(sess, chunk, name)
+            res["checks"].append(r)
+            for key, calls in scans.items():
+                scans_all[key] += calls
+                runs.setdefault(name, {}).setdefault(key, []).extend(calls)
+            if gate is not None:
+                sess._last_matched = gate
+            reset_counters()
+            n_syncs = dispatch_census(sess, chunk)
+            counts = read_counters()
+            res.setdefault("dispatch_syncs_per_frame", []).append(
+                n_syncs[0] / chunk)
+            res.setdefault("finish_syncs_per_chunk", []).append(n_syncs[1])
+            problems = launch_problems(counts, chunk, f"one {name} chunk")
+            log(f"[graphs] (b)+(c) {name} detect={sess.chunk_detect[-1]}: "
+                f"{n_syncs[0] / chunk:.2f} synchronizing calls/frame in the "
+                f"dispatch, {n_syncs[1]} in the finish (the telemetry "
+                f"event); launches under replay {launches(counts)}, "
+                f"store_slots {counts['store_slots']}, gftt_greedy_nms "
+                f"{counts['gftt_greedy_nms']}")
+            if n_syncs[0] or problems:
+                raise AssertionError(f"{name}: {n_syncs[0]} syncs in a "
+                                     f"dispatch; {problems}")
+        res["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
+                            for (k, d), v in sess.capture_s.items()}
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        res["footprint"] = pool_footprint(sess)
+        if gates[0] is not None:
+            sess.detect_gate_margin = 0             # config 3's cadence
+        res["fps"] = routes_fps(sess, start, chunk, min(
+            3, (len(sess.track) - start[0]) // chunk))
+        log(f"[graphs] (e) {name}: capture {res['capture_s']} s; frames/s "
+            f"graph {res['fps']['graph']} eager {res['fps']['eager']}; "
+            f"max_memory_allocated: whole phase "
+            f"{res['max_memory_allocated'] / 2**20:.1f} MiB, graph route "
+            f"{res['fps']['graph_peak'] / 2**20:.1f} MiB, eager route "
+            f"{res['fps']['eager_peak'] / 2**20:.1f} MiB; reserved after "
+            f"the captures: graph pool "
+            f"{res['footprint']['graph_pool'] / 2**20:.1f} MiB, body pool "
+            f"{res['footprint']['body_pool'] / 2**20:.1f} MiB, process "
+            f"{res['footprint']['memory_reserved'] / 2**20:.1f} MiB")
+        out[name] = res
+    for key, calls in scans_all.items():
+        for i, args in enumerate(calls):
+            if key == "gftt_greedy_nms":
+                check_scan(key, args[:2], f"captured {i}", errs,
+                           min_dist2=args[2])
+            else:
+                check_scan(key, args, f"captured {i}", errs)
+    out["captured"] = {k: len(v) for k, v in scans_all.items()}
+    if not (runs.get("config3", {}).get("store_slots")
+            and runs["config3"].get("gftt_greedy_nms")
+            and runs.get("config1", {}).get("gftt_greedy_nms")):
+        raise AssertionError(f"recurrence inputs captured: "
+                             f"{out['captured']}")
+    out["scan_times"] = scan_times(dev, floor, runs)
+    return out
 
 
 def phase_slice(dev, errs: dict) -> dict:
@@ -801,6 +1305,8 @@ def phase_slice(dev, errs: dict) -> dict:
     check_captured(captured, errs, "on a fixture frame", cfg.max_landmarks)
 
     problems = launch_problems(counts, len(recs), "config 1")
+    if not counts["gftt_greedy_nms"]:
+        problems.append("the greedy separation kernel never launched")
     if not np.all(np.isfinite(traj)):
         problems.append("non-finite poses")
     for name, n in timed_launches.items():
@@ -847,12 +1353,13 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    t_setup = time.perf_counter()
-    sess, gt_xy = config3_session(dev, chunk, **extra)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t_setup
-    n0 = len(sess.records)
-    with captured_kernel_inputs() as captured:
+    with captured_kernel_inputs(armed=False) as captured:
+        t_setup = time.perf_counter()
+        sess, gt_xy = config3_session(dev, chunk, **extra)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_setup
+        n0 = len(sess.records)
+        captured.arm()          # the timed run's first frames
         t0 = time.perf_counter()
         sess.run(n_frames=n_timed, chunk=chunk, drop_tail=True)
         torch.cuda.synchronize()
@@ -895,6 +1402,8 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
                    sess.cfg.max_landmarks)
 
     problems = launch_problems(counts, len(recs), "config 3")
+    problems += [f"{name} never launched" for name in SCAN_KERNELS
+                 if not counts[name]]
     if done != n_timed:
         problems.append(f"{done} timed frames, wanted {n_timed}")
     if not np.all(np.isfinite(traj)):
@@ -1893,22 +2402,40 @@ def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
 
 def phase_profile(dev, config: int) -> None:
     """Where a chunk's time goes: ``torch.profiler`` over one chunk after
-    the warm-up (config 1: one 32-frame chunk of the slice; config 3: after
-    the two warm-up chunks one 8-frame chunk with the detection gate forced
+    the warm-up, by the graph route and then by the eager route (the
+    private switch ``_graphs``), each on the same window from the same
+    state (config 1: one 32-frame chunk of the slice; config 3: after the
+    two warm-up chunks one 8-frame chunk with the detection gate forced
     shut, then one with it forced open; config 4: 16 frames with the live
-    backend). Prints wall ms per frame, the device's busy
-    share (union of device-side intervals over the wall time), the host's
-    synchronizing calls per frame and the device time per kernel name."""
+    backend). Prints wall ms per frame, the device's busy share (union of
+    device-side intervals over the wall time), the host's synchronizing
+    calls per frame and the device time per kernel name; for config 3
+    also the census of the source lines that synchronize."""
     from cv_monoslam_tpu_torch import SlamConfig
     from cv_monoslam_tpu_torch.api import SlamSession
     from cv_monoslam_tpu_torch.io import fixtures
+    from cv_monoslam_tpu_torch.ops import control
+
+    def both_routes(sess, frames, label, gate=None):
+        c0 = sess.counter
+        s0 = control.tree_map(torch.clone, sess.state)
+        for graphs in (True, False):
+            sess._graphs = graphs
+            sess.state = control.tree_map(torch.clone, s0)
+            sess.counter = c0
+            if gate is not None:
+                sess._last_matched = gate
+            profile_chunk(sess, frames, label + (", graph" if graphs
+                                                 else ", eager"))
+        sess._graphs = True
 
     if config == 1:
         chunk = 32
         seq, track, _, _ = fixtures.load("bench1_arc")
         sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
         sess.step_chunk(chunk)
-        profile_chunk(sess, chunk, "config 1")
+        sess.step_chunk(chunk)          # the graph captured and replayed
+        both_routes(sess, chunk, "config 1")
     elif config == 4:
         # two chunks of 8 with the live backend after two warm-up chunks:
         # frames 17-32 hold three keyframes, so three window solves
@@ -1922,31 +2449,32 @@ def phase_profile(dev, config: int) -> None:
         sess.step_chunk(chunk)
         sess.step_chunk(chunk)
         n0 = len(sess.refinements)
-        profile_chunk(sess, 2 * chunk, "config 4, live backend")
+        profile_chunk(sess, chunk, "config 4, live backend, graph",
+                      n_chunks=2)
         log(f"[profile] config 4: {len(sess.refinements) - n0} backend "
             f"solves inside the profiled frames")
     else:
         chunk = 8
         sess, _ = config3_session(dev, chunk)
-        sess._last_matched = sess.cfg.min_num     # a tracking chunk
-        profile_chunk(sess, chunk, "config 3")
-        sess._last_matched = 0                    # a detect chunk
-        profile_chunk(sess, chunk, "config 3")
-        sess._last_matched = sess.cfg.min_num
-        sync_census(sess, chunk, "config 3")
-        sess._last_matched = 0
-        sync_census(sess, chunk, "config 3")
+        both_routes(sess, chunk, "config 3", gate=sess.cfg.min_num)
+        both_routes(sess, chunk, "config 3", gate=0)
+        for gate in (sess.cfg.min_num, 0):
+            sess._last_matched = gate
+            sync_census(sess, chunk, "config 3, graph")
 
 
 def sync_census(sess, chunk: int, label: str) -> None:
-    """Which source lines make the host wait for the device, per frame: one
-    chunk under ``torch.cuda.set_sync_debug_mode("warn")``, the warnings
-    counted by the port's line that issued the call."""
+    """Which source lines make the host wait for the device: one chunk's
+    dispatch and then its finish under ``torch.cuda.set_sync_debug_mode(
+    "warn")``, the warnings counted by the port's line that issued the
+    call."""
     import collections
     import traceback
     import warnings
 
-    where = collections.Counter()
+    where = {"dispatch": collections.Counter(),
+             "finish": collections.Counter()}
+    step = ["dispatch"]
 
     def note(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" not in str(message):
@@ -1954,8 +2482,8 @@ def sync_census(sess, chunk: int, label: str) -> None:
         mine = [f for f in traceback.extract_stack()
                 if "cv_monoslam_tpu_torch" in f.filename]
         f = mine[-1] if mine else None
-        where[f"{os.path.relpath(f.filename)}:{f.lineno} ({f.name})"
-              if f else f"{filename}:{lineno}"] += 1
+        where[step[0]][f"{os.path.relpath(f.filename)}:{f.lineno} "
+                       f"({f.name})" if f else f"{filename}:{lineno}"] += 1
 
     real = warnings.showwarning
     torch.cuda.synchronize()
@@ -1964,15 +2492,19 @@ def sync_census(sess, chunk: int, label: str) -> None:
         with warnings.catch_warnings():
             warnings.simplefilter("always")
             warnings.showwarning = note
-            n = len(sess.step_chunk(chunk))
+            pending = sess._dispatch_chunk(chunk)
+            step[0] = "finish"
+            n = len(sess._finish_chunk(pending))
     finally:
         warnings.showwarning = real
         torch.cuda.set_sync_debug_mode("default")
     tag = f"[syncs] {label}, detect={sess.chunk_detect[-1]}"
-    log(f"{tag}: {sum(where.values()) / n:.1f} synchronizing calls/frame "
-        f"over {n} frames")
-    for src, cnt in where.most_common(20):
-        log(f"{tag}   {cnt / n:6.2f}/frame  {src}")
+    log(f"{tag}: {sum(where['dispatch'].values()) / n:.1f} synchronizing "
+        f"calls/frame inside the chunk (its dispatch), "
+        f"{sum(where['finish'].values())} in its finish, over {n} frames")
+    for part, counter in where.items():
+        for src, cnt in counter.most_common(20):
+            log(f"{tag}   {part}: {cnt / n:6.2f}/frame  {src}")
 
 
 def union_us(spans) -> float:
@@ -2009,7 +2541,9 @@ def wall_and_busy_ms(fn, reps: int = 5) -> Tuple[float, float, int]:
     return statistics.median(walls), union_us(spans) / 1e3, len(spans)
 
 
-def profile_chunk(sess, chunk: int, label: str) -> None:
+def profile_chunk(sess, chunk: int, label: str, n_chunks: int = 1) -> None:
+    """``torch.profiler`` over ``n_chunks`` calls of ``step_chunk(chunk)``
+    (whose graph the caller has captured already)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2019,7 +2553,7 @@ def profile_chunk(sess, chunk: int, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        n = len(sess.step_chunk(chunk))
+        n = sum(len(sess.step_chunk(chunk)) for _ in range(n_chunks))
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name, syncs = [], {}, 0
@@ -2074,6 +2608,7 @@ def main() -> int:
     run(phase_build)
     errs = run(phase_kernel_checks, dev)
     times = run(phase_kernel_times, dev)
+    gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"])
     sl = run(phase_slice, dev, errs)
     c3 = run(phase_config3, dev, errs)
     rd = run(phase_redirect, dev)
@@ -2146,6 +2681,44 @@ def main() -> int:
             k["grid_sample_ms"] = t32["grid_sample_ms"]
             k["grid_sample_ms_m576"] = t576["grid_sample_ms"]
         kernels.append(k)
+    scan_meta = {
+        "store_slots": dict(
+            replaces="cv_monoslam_tpu/filter/lifecycle.py:136-165 (a "
+                     "lax.scan of lax.cond, no Pallas kernel)",
+            times=gr["scan_times"]["store_slots"]),
+        "gftt_greedy_nms": dict(
+            replaces="cv_monoslam_tpu/frontend/detect.py:91-128 (a "
+                     "blocked lax.scan, no Pallas kernel)",
+            times=gr["scan_times"]["gftt_greedy_nms_k768"]),
+    }
+    for name, mt in scan_meta.items():
+        t = mt["times"]
+        k = dict(name=name, route="cuda",
+                 source="cv_monoslam_tpu_torch/ops/csrc/scan_kernels.cu",
+                 replaces=mt["replaces"], launches=sl["launches"][name],
+                 launches_config3=c3["launches"][name],
+                 launches_redirect=rd["launches"][name],
+                 launches_config4=c4["launches"][name],
+                 launches_reference=ref["launches"][name],
+                 max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                 library_ms=None, host_ms=t["host_ms"], shape=t["shape"],
+                 launch_floor_ms=times["launch_floor_ms"])
+        if name == "store_slots":
+            th = gr["scan_times"]["store_slots_heavy"]
+            k.update(ms_heavy=th["ms"], plain_ms_heavy=th["plain_ms"],
+                     bound_ms_heavy=th["bound_ms"], shape_heavy=th["shape"])
+        if name == "gftt_greedy_nms":
+            t48 = gr["scan_times"]["gftt_greedy_nms_k48"]
+            k.update(ms_k48=t48["ms"], plain_ms_k48=t48["plain_ms"],
+                     bound_ms_k48=t48["bound_ms"])
+        kernels.append(k)
+    for name in ("config1", "config3", "config4"):
+        g = gr[name]
+        log(f"[graphs] {name} [{info['smi']}]: frames/s graph "
+            f"{g['fps']['graph']} eager {g['fps']['eager']}; capture "
+            f"{g['capture_s']} s; dispatch syncs/frame "
+            f"{g['dispatch_syncs_per_frame']}")
     log(f"[slice] config 1, bench1_arc, float32: {sl['fps']:.2f} frames/s "
         f"over {sl['timed_frames']} frames; ATE {sl['ate_m']:.5f} m "
         f"(64 frames: {sl['ate64_m']:.5f} m)")

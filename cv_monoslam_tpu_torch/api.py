@@ -4,23 +4,39 @@
 (MonoSLAMView.cpp:499-572): feed frames one at a time (``step``) or run to
 the end of the odometry track (``run``), collecting per-frame telemetry.
 
-Each frame is one call of ``filter.srukf.slam_step`` on device tensors;
-``step_chunk`` runs k frames as a Python loop, ships their images to the
-device in one copy (uint8 when lossless, cast on the device) and fetches
-their telemetry in one transfer (``_pack_row``).
+Each frame is one call of ``filter.srukf.slam_step``. A chunk of k frames
+has the JAX session's machinery, name for name (``cv_monoslam_tpu/api.py``):
 
-Host syncs per frame. The JAX engine keeps its gates on the device
-(``lax.cond``); here each gate is a Python ``if`` on a device scalar, so a
-normal frame reads the device four times: the motion-predict Cholesky's
-repair test, the joint-update Cholesky's repair test, update_features'
-store/delete flags, and the detect-when-starved trigger. A detect frame
-adds one (the integration Cholesky), every extra jitter rung one more, and
-a frame that stores records one per record. Under ``sigma_mode="implicit"``
-the motion predict factorizes nothing (its sync goes), and with
-``cfg.gate_detection`` off the detect trigger is a mask on the device (its
-sync goes too; ``detect_host_gate`` decides per chunk from telemetry the
-host already holds). Removing them (CUDA graphs
-with device-side gates) is queued in ROADMAP.md.
+* ``_chunk_fn(k, detect)``: on the card, k calls of ``slam_step`` plus
+  ``_pack_row`` captured as ONE ``torch.cuda.CUDAGraph`` per ``(k,
+  detect)`` key (the JAX package's ``jax.jit(lax.scan(...))``), every gate
+  of the frame a conditional node on the device (``ops/control.py``), so a
+  replay reads nothing back to the host. It reads static inputs (the
+  session's state buffers, the (k, H, W) window, the k + 1 odometry rows)
+  and writes static outputs (the state buffers, the (k, row) telemetry).
+  A warm-up frame runs eagerly on a side stream before each capture, with
+  both sides of every gate; all of a session's graphs share one memory
+  pool (they never run at once). A failed capture or replay raises: there
+  is no fallback.
+* ``_dispatch_chunk``: the detect decision, the window into the static
+  buffer, the replay, the telemetry's copy into pinned host memory behind
+  an event, the next window's prefetch, the counter; no host sync.
+* ``_finish_chunk``: waits on that event, unpacks the rows, runs the
+  per-frame host side effects (``_post_frame``).
+* ``_prefetch_images``: the next window into pinned memory and onto the
+  device on a side stream while the current chunk runs.
+* ``run``: dispatches chunk i + 1 before it finishes chunk i whenever no
+  watchdog and no backend is attached and either the detect gate is off or
+  ``detect_gate_margin`` is set (the gate then reads the match count one
+  chunk stale).
+
+The eager route (the same ``slam_step`` calls, each gate read on the host)
+runs a chunk instead when the config asks for a mode the graphs do not
+cover (``sigma_mode`` other than ``"full"`` / ``"implicit"``, ``update_mode``
+or ``qr_mode`` other than ``"gram"``), under an ambient mesh
+(``ops.linalg.AMBIENT``, the ``parallel/`` paths), on the CPU, or when the
+private switch ``_graphs`` is off. Single ``step()`` calls, which also take
+every redirection frame, are eager, as the JAX session single-steps them.
 
 Per-frame host side effects (``_post_frame``) read only the telemetry the
 chunk already fetched: the run recorder (``io.recording.RunRecorder``), the
@@ -29,6 +45,11 @@ watchdog, periodic checkpoints, and the keyframe backend
 tensors once per keyframe and never feed back into the filter
 (``trajectory_refined`` composes their corrections afterwards). A keyframe
 costs the host one upload of the window or graph and one fetch of the solve.
+
+After a graph chunk ``state`` IS the session's static state buffers: the
+next chunk overwrites them in place (clone what must be kept). A state the
+caller (``resume``, a watchdog recovery) or an eager step puts there is
+copied into the buffers by the next graph chunk.
 """
 
 from __future__ import annotations
@@ -44,6 +65,8 @@ import torch
 
 from .config import SlamConfig
 from .filter.srukf import initialize, slam_step
+from .ops import control
+from .ops.linalg import AMBIENT
 from .filter.state import (FilterState, init_state, resolve_device,
                            torch_dtype)
 from .io.dataset import ImageSequence, OdometryTrack
@@ -91,6 +114,33 @@ def _unpack_row(row: np.ndarray, M: int) -> dict:
         lm_match_px=row[k + 3 * M:k + 5 * M].reshape(M, 2),
         lm_xyz=row[k + 5 * M:k + 8 * M].reshape(M, 3),
     )
+
+
+@dataclasses.dataclass
+class _ChunkGraph:
+    """One captured chunk: the graph, its static inputs (the (k, H, W)
+    window in the transport dtype, the k + 1 odometry rows) and output (the
+    (k, row) telemetry)."""
+    graph: "torch.cuda.CUDAGraph"
+    imgs: torch.Tensor
+    odo: torch.Tensor
+    rows: torch.Tensor
+
+
+def _write_back(buf: FilterState, state: FilterState) -> None:
+    """Copy ``state`` into the static buffers ``buf`` (in a capture: the
+    chunk's last nodes). A field that shares storage with another buffer
+    is cloned first, so no copy reads a buffer already overwritten."""
+    bufs, outs = control.leaves(buf), control.leaves(state)
+    ptrs = {b.untyped_storage().data_ptr() for b in bufs}
+    outs = [o.clone() if o is not b and o.untyped_storage().data_ptr()
+            in ptrs else o for b, o in zip(bufs, outs)]
+    for b, o in zip(bufs, outs):
+        if o.shape != b.shape or o.dtype != b.dtype:
+            raise ValueError(f"state field {tuple(o.shape)} {o.dtype} does "
+                             f"not fit its buffer {tuple(b.shape)} {b.dtype}")
+        if o is not b:
+            b.copy_(o)
 
 
 @dataclasses.dataclass
@@ -147,21 +197,33 @@ class SlamSession:
         #: ``cfg.gate_detection`` keep exact per-frame semantics;
         #: large-state configs enable it.
         self.detect_host_gate = False
-        #: ``None``: each chunk's gate reads the match count at the end of
-        #: the chunk before it. An int margin M selects the pipelined
-        #: cadence of :meth:`run`: the gate of a chunk reads the count at
-        #: the end of the chunk before the previous one (one chunk stale),
-        #: and detection triggers at matched < min_num + M to absorb the
+        #: opt-in: keep PIPELINING while host-gated (the gate then reads the
+        #: match count one chunk stale: a mid-chunk collapse could run
+        #: starved for up to 2*chunk frames, which is why gating stops the
+        #: pipelining by default). An int margin M re-enables it, and
+        #: detection triggers at matched < min_num + M to absorb the
         #: staleness. M = 0 accepts the stale gate with no cushion: sound
         #: only when the config hovers far above true starvation, never at
         #: the reference-default min_num = 5 (run() warns).
         self.detect_gate_margin: Optional[int] = None
         self._last_matched = 0            # latest n_matched seen
-        #: match count of a finished chunk that the pipelined cadence has
-        #: not let the gate see yet
-        self._deferred_matched: Optional[int] = None
-        #: the detect flag of every chunk run so far
+        #: the detect flag of every chunk dispatched so far
         self.chunk_detect: List[bool] = []
+        #: private switch: False runs every chunk by the eager route
+        self._graphs = True
+        #: (k, detect) -> _ChunkGraph, and each capture's seconds
+        self._chunk_steps: dict = {}
+        self.capture_s: dict = {}
+        self._state_buf: Optional[FilterState] = None
+        self._pool = None                  # the graphs' memory pool
+        self._body_pool = None             # their conditional bodies' pool
+        self._copy_stream = None           # the prefetch's side stream
+        #: (key, device window, prefetch slot, ready event) of the window
+        #: the next dispatch may take
+        self._img_prefetch = None
+        #: per window shape two device buffers the prefetch alternates
+        #: between, each with the event after which it may be overwritten
+        self._img_slots: dict = {}
         self._dtype = torch_dtype(cfg.dtype)
         #: transport images as uint8 when lossless; decided from the first
         #: frame
@@ -274,6 +336,7 @@ class SlamSession:
         return sess
 
     def step(self) -> Optional[FrameRecord]:
+        """One frame, eager (also every redirection frame)."""
         k = self.counter
         if k >= len(self.track):
             return None
@@ -287,32 +350,213 @@ class SlamSession:
         tele = _unpack_row(row, self.cfg.max_landmarks)
         rec = self._record(k, tele, self.timer.stop())
         self.counter += 1
-        self._flush_gate()
         self._last_matched = rec.n_matched
         self._post_frame(rec, tele)
         return rec
 
-    def _flush_gate(self) -> None:
-        """Let the gate see the last finished chunk's match count."""
-        if self._deferred_matched is not None:
-            self._last_matched = self._deferred_matched
-            self._deferred_matched = None
+    # -- the chunk machinery ------------------------------------------------
 
-    def step_chunk(self, k: int, *,
-                   defer_gate: bool = False) -> List[FrameRecord]:
-        """Process up to ``k`` frames with one image upload and one
-        telemetry fetch. Frames up to and including a redirection frame are
+    def _window_images(self, ks: int, k: int):
+        """The (k, H, W) window on the device in the transport dtype, from
+        the prefetch when the previous chunk already shipped it (the
+        current stream then waits on its event); returns (window, the
+        prefetch slot it sits in or None)."""
+        pre, self._img_prefetch = self._img_prefetch, None
+        if pre is not None and pre[0] == (ks, k):
+            _, dev, slot, ready = pre
+            if ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(ready)
+            return dev, slot
+        host = torch.from_numpy(self._stack_window(ks, k))
+        if self.device.type != "cuda":
+            return host.to(self.device), None
+        return host.pin_memory().to(self.device, non_blocking=True), None
+
+    def _stack_window(self, ks: int, k: int) -> np.ndarray:
+        return np.stack([
+            self._prep_image(self.images.get(int(self.track.frame_id[i])))
+            for i in range(ks, ks + k)])
+
+    def _prefetch_images(self, ks: int, k: int) -> None:
+        """Ship window ``[ks, ks + k)`` to the device while the chunk just
+        dispatched runs: pinned host memory, then a copy on a side stream
+        into one of two device buffers that alternate, behind an event."""
+        host = torch.from_numpy(self._stack_window(ks, k))
+        if self.device.type != "cuda":
+            self._img_prefetch = ((ks, k), host.to(self.device), None, None)
+            return
+        pinned = host.pin_memory()
+        main = torch.cuda.current_stream(self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        slots = self._img_slots.get(tuple(host.shape))
+        if slots is None:
+            # made on the main stream: the side stream waits for what the
+            # main stream had queued when they were made
+            made = main.record_event()
+            slots = self._img_slots[tuple(host.shape)] = [
+                [torch.empty(host.shape, dtype=host.dtype,
+                             device=self.device), made] for _ in range(2)]
+        slot = slots.pop(0)
+        slots.append(slot)
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(slot[1])
+            slot[0].copy_(pinned, non_blocking=True)
+            ready = self._copy_stream.record_event()
+        self._img_prefetch = ((ks, k), slot[0], slot, ready)
+
+    def _graph_route(self) -> bool:
+        """Chunks run as captured graphs: on the card, in the modes the
+        graphs cover, without an ambient mesh, unless switched off."""
+        cfg = self.cfg
+        return (self._graphs and self.device.type == "cuda"
+                and cfg.sigma_mode in ("full", "implicit")
+                and cfg.update_mode == "gram" and cfg.qr_mode == "gram"
+                and AMBIENT.get()[0] is None)
+
+    def _chunk_fn(self, k: int, detect: bool = True):
+        """``fn(state, imgs, odo) -> (state, rows)`` running k frames
+        (``imgs`` the (k, H, W) window, ``odo`` its k + 1 odometry rows),
+        rows the (k, row) packed telemetry. On the graph route the graph
+        of key ``(k, detect)``, captured at its first use; else the eager
+        loop. ``detect=False`` leaves the detection pipeline out."""
+        if not self._graph_route():
+            return lambda state, imgs, odo: self._frames(state, imgs, odo,
+                                                         detect)
+        key = (k, detect)
+        if key not in self._chunk_steps:
+            t0 = time.perf_counter()
+            self._chunk_steps[key] = self._capture_chunk(k, detect)
+            self.capture_s[key] = time.perf_counter() - t0
+        g = self._chunk_steps[key]
+
+        def replay(state, imgs, odo):
+            if state is not self._state_buf:
+                _write_back(self._state_buf, state)
+            g.imgs.copy_(imgs)
+            g.odo.copy_(odo)
+            g.graph.replay()
+            return self._state_buf, g.rows
+
+        return replay
+
+    def _frames(self, state: FilterState, imgs: torch.Tensor,
+                odo: torch.Tensor, detect: bool):
+        """``slam_step`` over the window ``imgs`` (its k + 1 odometry rows
+        ``odo``): (the state after it, the (k, row) packed telemetry)."""
+        imgs = imgs.to(self._dtype)
+        rows = []
+        for i in range(imgs.shape[0]):
+            state, out = slam_step(state, imgs[i], odo[i], odo[i + 1], False,
+                                   self.cfg, allow_detect=detect)
+            rows.append(_pack_row(out, self.cfg.max_landmarks))
+        return state, torch.stack(rows)
+
+    def _capture_chunk(self, k: int, detect: bool) -> "_ChunkGraph":
+        dev = self.device
+        if self._state_buf is None:
+            self._state_buf = control.tree_map(torch.clone, self.state)
+            self._pool = torch.cuda.graph_pool_handle()
+            self._body_pool = torch.cuda.MemPool()
+        elif self.state is not self._state_buf:
+            _write_back(self._state_buf, self.state)
+        self.state = buf = self._state_buf
+        H, W = self.cfg.camera.height, self.cfg.camera.width
+        imgs = torch.zeros((k, H, W), device=dev, dtype=(
+            torch.uint8 if self._img_u8 else self._dtype))
+        odo = self._odo[:k + 1].clone()
+
+        # warm-up: one frame, every branch, on the stream the capture uses
+        # (thrown away); library handles are per stream
+        side = control.capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), control.warmup():
+            self._frames(buf, imgs[:1], odo[:2], detect)
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side), \
+                control.capture(self._body_pool):
+            st, rows = self._frames(buf, imgs, odo, detect)
+            _write_back(buf, st)
+        return _ChunkGraph(graph=graph, imgs=imgs, odo=odo, rows=rows)
+
+    def _dispatch_chunk(self, k: int) -> Optional[dict]:
+        """Dispatch ONE k-frame chunk without waiting for its telemetry.
+
+        Returns a pending descriptor (the telemetry still in flight) or
+        None when a redirect boundary / end of track prevents a full-chunk
+        dispatch. The counter advances immediately; records appear when
+        :meth:`_finish_chunk` materializes."""
+        k = min(k, len(self.track) - self.counter)
+        if k <= 0 or self._redirect[self.counter:self.counter + k].any():
+            return None
+        ks = self.counter
+        t0 = time.perf_counter()
+        # host-gated detection cadence: the reference's detect-when-starved
+        # trigger (SLAM.cpp:552-562) decided per CHUNK from the latest
+        # materialized match telemetry
+        detect = True
+        if self.detect_host_gate:
+            detect = self._last_matched < (
+                self.cfg.min_num + (self.detect_gate_margin or 0))
+        self.chunk_detect.append(detect)
+        imgs, slot = self._window_images(ks, k)
+        self.state, rows = self._chunk_fn(k, detect)(
+            self.state, imgs, self._odo[ks - 1:ks + k])
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            if slot is not None:
+                slot[1] = main.record_event()      # window consumed
+            host = torch.empty(rows.shape, dtype=rows.dtype,
+                               pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            done = main.record_event()
+        else:
+            host, done = rows, None
+        # prefetch the NEXT window's images while the device computes
+        ns = ks + k
+        if (ns + k <= len(self.track)
+                and not self._redirect[ns:ns + k].any()):
+            self._prefetch_images(ns, k)
+        self.counter += k
+        return dict(rows=host, done=done, ks=ks, k=k, t0=t0)
+
+    def _finish_chunk(self, pending: dict) -> List[FrameRecord]:
+        """Materialize a dispatched chunk's telemetry (wait on its event)
+        and run the per-frame host side effects."""
+        ks, k = pending["ks"], pending["k"]
+        if pending["done"] is not None:
+            pending["done"].synchronize()
+        rows = pending["rows"].numpy()
+        # wall time from THIS chunk's dispatch timestamp (the shared
+        # FrameTimer slot is overwritten when the next chunk dispatches
+        # before this one finishes in the pipelined loop)
+        wall = self.timer.record(time.perf_counter() - pending["t0"],
+                                 frames=k)
+        M = self.cfg.max_landmarks
+        recs = []
+        for i in range(k):
+            tele = _unpack_row(rows[i], M)
+            recs.append(self._record(ks + i, tele, wall / k))
+            self._post_frame(recs[-1], tele)
+        if recs:
+            self._last_matched = recs[-1].n_matched
+        return recs
+
+    def step_chunk(self, k: int) -> List[FrameRecord]:
+        """Process up to ``k`` frames in ONE dispatch (one replay on the
+        graph route). Frames up to and including a redirection frame are
         single-stepped instead.
 
         With ``detect_host_gate`` the whole chunk runs with or without the
-        detection pipeline, decided from the latest match count the gate has
-        seen. ``defer_gate`` (the pipelined cadence of :meth:`run`) keeps
-        this chunk's count from the gate until the next chunk has been
-        decided."""
+        detection pipeline, decided from the latest match count seen."""
         k = min(k, len(self.track) - self.counter)
         if k <= 0:
             return []
         ks = self.counter
+        # the chunk is the redirect-free branch; segment at redirection
+        # frames (rare: |dtheta| > 45 deg) and single-step those
         if self._redirect[ks]:
             rec = self.step()
             return [rec] if rec is not None else []
@@ -325,86 +569,73 @@ class SlamSession:
                     break
                 recs.append(rec)
             return recs
-        detect = True
-        if self.detect_host_gate:
-            detect = self._last_matched < (
-                self.cfg.min_num + (self.detect_gate_margin or 0))
-        self.chunk_detect.append(detect)
-        self._flush_gate()
-        t0 = time.perf_counter()
-        M = self.cfg.max_landmarks
-        imgs = self._to_device(np.stack([
-            self._prep_image(self.images.get(int(self.track.frame_id[i])))
-            for i in range(ks, ks + k)]))
-        rows = []
-        for i in range(k):
-            self.state, out = slam_step(
-                self.state, imgs[i], self._odo[ks + i - 1], self._odo[ks + i],
-                False, self.cfg, allow_detect=detect)
-            rows.append(_pack_row(out, M))
-        rows = torch.stack(rows).cpu().numpy()
-        wall = self.timer.record(time.perf_counter() - t0, frames=k) / k
-        self.counter += k
-        recs = []
-        for i in range(k):
-            tele = _unpack_row(rows[i], M)
-            recs.append(self._record(ks + i, tele, wall))
-            self._post_frame(recs[-1], tele)
-        if defer_gate:
-            self._deferred_matched = recs[-1].n_matched
-        else:
-            self._last_matched = recs[-1].n_matched
-        return recs
+        pending = self._dispatch_chunk(k)
+        return self._finish_chunk(pending) if pending else []
 
     def run(self, n_frames: Optional[int] = None, chunk: int = 1,
             drop_tail: bool = False) -> np.ndarray:
         """AUTO mode: run to the end (or n_frames); returns (T, 4) poses.
 
-        ``chunk > 1`` processes that many frames per :meth:`step_chunk`;
-        ``drop_tail`` stops before an incomplete final chunk instead of
-        single-stepping it.
-
-        Host-gated detection (``detect_host_gate``) follows the JAX
-        session's cadence chunk for chunk. That session overlaps chunk
-        i + 1's device work with chunk i's telemetry fetch whenever no
-        watchdog and no backend is attached and either the gate is off or
-        ``detect_gate_margin`` is set; the gate of chunk i + 1 then reads
-        the match count at the end of chunk i - 1. Nothing is overlapped
-        here (the frame loop syncs with the host anyway), but each chunk's
-        detect flag is the one that cadence picks."""
+        ``chunk > 1`` runs that many frames per dispatch and PIPELINES the
+        telemetry fetch: chunk i's device-to-host copy and host side
+        effects overlap chunk i + 1's device work. ``drop_tail`` stops
+        before an incomplete final chunk instead of single-stepping it.
+        """
         n = (len(self.track) - self.counter if n_frames is None
              else n_frames)
-        stale_gate = (self.watchdog is None and self.backend is None
-                      and self.detect_host_gate
-                      and self.detect_gate_margin is not None)
-        if (stale_gate and chunk > 1
-                and self.detect_gate_margin < chunk
+        # pipelining defers each chunk's host side effects until the next
+        # chunk is already in flight: a watchdog recovery (or a backend
+        # loop closure) would then act one chunk late, and the host-gated
+        # detection decision would read match telemetry up to TWO chunks
+        # stale. With stateful host observers or host-gated detection,
+        # finish each chunk before dispatching the next.
+        pipelined = (self.watchdog is None and self.backend is None
+                     and (not self.detect_host_gate
+                          or self.detect_gate_margin is not None))
+        if (pipelined and self.detect_host_gate
+                and (self.detect_gate_margin or 0) < chunk
                 and self.cfg.min_num <= self.cfg.max_new_per_frame):
             # margin below the per-chunk staleness AND a min_num small
             # enough that one starved stretch can drop the map below
             # redetection's reach (reference-default min_num=5 regime)
             warnings.warn(
-                f"host-gated detection one chunk stale with margin "
+                f"pipelined host-gated detection with margin "
                 f"{self.detect_gate_margin} < chunk {chunk} at "
                 f"min_num={self.cfg.min_num}: the stale gate can run "
                 f"starved for up to 2*chunk frames with no cushion",
                 stacklevel=2)
-        done = 0
-        while done < n and self.counter < len(self.track):
-            ks = self.counter
-            # (a window cut short by the end of the track runs as one
-            # shorter chunk)
-            full = (chunk > 1 and n - done >= chunk
-                    and not self._redirect[ks:ks + chunk].any())
-            if full:
-                done += len(self.step_chunk(chunk, defer_gate=stale_gate))
-                continue
-            if chunk > 1 and drop_tail and not self._redirect[ks]:
+        if chunk > 1:
+            done = 0          # frames with records materialized
+            dispatched = 0    # frames consumed by the device
+            pending = None
+            while True:
+                if not pipelined and pending is not None:
+                    done += len(self._finish_chunk(pending))
+                    pending = None
+                nxt = (self._dispatch_chunk(chunk)
+                       if n - dispatched >= chunk else None)
+                if pending is not None:
+                    done += len(self._finish_chunk(pending))
+                pending = nxt
+                if nxt is not None:
+                    dispatched += nxt["k"]
+                    continue
+                # no dispatch: end of track, redirect boundary, or tail
+                if dispatched < n and self.counter < len(self.track):
+                    at_redirect = bool(self._redirect[self.counter])
+                    if at_redirect or not drop_tail:
+                        # single-step through redirects (then resume
+                        # chunking) and through the odd tail
+                        if self.step() is None:
+                            break
+                        done += 1
+                        dispatched += 1
+                        continue
                 break
+            return self.trajectory
+        for _ in range(n):
             if self.step() is None:
                 break
-            done += 1
-        self._flush_gate()
         return self.trajectory
 
     @property

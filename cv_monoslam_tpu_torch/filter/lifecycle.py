@@ -24,7 +24,7 @@ import torch
 from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
-from ..ops import qr_r
+from ..ops import control, qr_r, vision
 from ..ops.linalg import gram_rows
 from .motion import (equilibrated_chol, structured_sqrt_gram,
                      structured_sqrt_gram_rows)
@@ -125,52 +125,47 @@ def store_features(stored: StoredTable, recs: dict,
                    mask: torch.Tensor) -> StoredTable:
     """Scatter mask-selected records into stored slots.
 
-    Slot policy per record: (1) a valid slot already holding the same
-    landmark id is overwritten; (2) else the first free slot; (3) else the
-    OLDEST slot by insertion stamp is evicted. Records are taken in slot
-    order on the host (one sync to read the mask, a few per stored record
-    to pick its slot): stores happen on border deletions and on a redirect
-    reset.
-    """
-    fields = {k: getattr(stored, k).clone() for k in
-              ("valid", "stamp", *_RECORD_FIELDS)}
-    seq = int(stored.seq)
-    for j in torch.nonzero(mask).flatten().tolist():
-        valid = fields["valid"]
-        lid_j = recs["lid"][j]
-        dup = valid & (fields["lid"] == lid_j)
-        big = torch.iinfo(torch.int32).max
-        if bool(torch.any(dup)):
-            slot = int(torch.argmax(dup.to(torch.int32)))
-        elif bool(torch.any(~valid)):
-            slot = int(torch.argmin(valid.to(torch.int32)))
-        else:
-            slot = int(torch.argmin(torch.where(
-                valid, fields["stamp"], torch.full_like(fields["stamp"],
-                                                        big))))
-        fields["valid"][slot] = True
-        fields["stamp"][slot] = seq
-        seq += 1
-        for k in _RECORD_FIELDS:
-            fields[k][slot] = recs[k][j].to(fields[k].dtype)
-    return replace(stored, seq=torch.full_like(stored.seq, seq), **fields)
+    Slot policy per record, records in order: (1) a valid slot already
+    holding the same landmark id is overwritten; (2) else the first free slot; (3)
+    else the OLDEST slot by insertion stamp is evicted. The policy is the
+    ``store_slots`` kernel (``ops/vision.py``; the JAX package's
+    ``lax.scan`` of ``lax.cond``), which also names the record that wrote
+    each table slot last; each field is then one gather from the records.
+    Nothing is read back to the host."""
+    _, src, valid, stamp, seq = vision.store_slots(
+        mask, recs["lid"], stored.valid, stored.lid, stored.stamp,
+        stored.seq)
+    take = src >= 0
+    idx = torch.clamp(src, min=0).long()
+
+    def field(k):
+        old = getattr(stored, k)
+        sel = take.reshape((-1,) + (1,) * (old.dim() - 1))
+        return torch.where(sel, recs[k][idx].to(old.dtype), old)
+
+    return replace(stored, valid=valid, stamp=stamp, seq=seq,
+                   **{k: field(k) for k in _RECORD_FIELDS})
 
 
 def update_features(state: FilterState, cfg: SlamConfig) -> FilterState:
     """Deletion pass + Cartesian refresh (SLAM.cpp:2397-2706).
 
-    Most frames delete and store nothing; one host read of both flags
-    decides whether the store scan and the refactorization run."""
+    Most frames delete and store nothing: the store scan and the
+    refactorization each run under :func:`control.cond`, as the JAX
+    package's two ``lax.cond`` do."""
     M = cfg.max_landmarks
     delete, store = delete_rules(state, cfg)
-    any_store, any_delete = torch.stack(
-        [torch.any(store), torch.any(delete)]).tolist()
-    stored = state.stored
-    if any_store:
-        stored = store_features(stored, snapshot_records(state, cfg), store)
-    x_new, S_new, rep = state.x, state.S, 0
-    if any_delete:
-        x_new, S_new, rep = fold_delete(state.x, state.S, delete, cfg)
+    stored = control.cond(
+        torch.any(store),
+        lambda st, s: store_features(st, snapshot_records(s, cfg), store),
+        lambda st, s: st,
+        (state.stored, state))
+    x_new, S_new, rep = control.cond(
+        torch.any(delete),
+        lambda x, S: fold_delete(x, S, delete, cfg),
+        lambda x, S: (x, S, torch.zeros((), dtype=torch.int32,
+                                        device=x.device)),
+        (state.x, state.S))
     lm = state.lm
     keep = lm.active & ~delete
     feats = x_new[: 6 * M].reshape(M, 6)
@@ -245,11 +240,17 @@ def _fold_sqrt(S: torch.Tensor, Ep: torch.Tensor, Em: torch.Tensor,
     vmask = torch.cat([vmask3, vmask3])
     delta = delta + torch.diag((~vmask).to(S.dtype))
     R_d, rep = equilibrated_chol(delta)
-    V[ridx] = 0.0                    # T-block rows live in R_d only
+    V.index_fill_(0, ridx, 0.0)      # T-block rows live in R_d only
     S_new = S.clone()
     S_new[:, ridx] = V
     S_new[ridx[:, None], ridx[None, :]] += R_d
     return S_new, rep
+
+
+def _add_noise(cfg: SlamConfig, dtype, dev) -> torch.Tensor:
+    """(u, v, rho) sqrt noise of a new feature (built once per device)."""
+    return control.constant((cfg.sigma_measure, cfg.sigma_measure,
+                             cfg.sigma_rho), dtype, dev)
 
 
 def _integrate_implicit(state: FilterState, safe_c: torch.Tensor,
@@ -292,8 +293,7 @@ def _integrate_implicit(state: FilterState, safe_c: torch.Tensor,
     # candidate noise rows: mean +- gamma*noise at their own column only
     noise = torch.where(
         valid[:, None],
-        torch.tensor([cfg.sigma_measure, cfg.sigma_measure, cfg.sigma_rho],
-                     dtype=dtype, device=dev)[None, :],
+        _add_noise(cfg, dtype, dev)[None, :],
         torch.ones((KA, 3), dtype=dtype, device=dev))      # (KA, 3)
     mu2 = torch.cat([safe_c, torch.full((KA, 1), cfg.rho0, dtype=dtype,
                                         device=dev)], dim=1)   # (KA, 3)
@@ -366,8 +366,8 @@ def integrate_features(state: FilterState, image: torch.Tensor,
     valid = valid & ~state.lm.active[targets]
 
     # augmented mean + sqrt (SLAM.cpp:847-869)
-    centre = torch.tensor([cam.width / 2.0, cam.height / 2.0], dtype=dtype,
-                          device=dev)
+    centre = control.constant((cam.width / 2.0, cam.height / 2.0), dtype,
+                              dev)
     safe_c = torch.where(valid[:, None], corners.to(dtype), centre)
     if cfg.sigma_mode == "implicit":
         x_new, S_new, rep = _integrate_implicit(state, safe_c, valid,
@@ -378,8 +378,7 @@ def integrate_features(state: FilterState, image: torch.Tensor,
                                         device=dev)], dim=1).reshape(-1)
     noise = torch.where(
         valid[:, None],
-        torch.tensor([cfg.sigma_measure, cfg.sigma_measure, cfg.sigma_rho],
-                     dtype=dtype, device=dev)[None, :],
+        _add_noise(cfg, dtype, dev)[None, :],
         torch.ones((KA, 3), dtype=dtype, device=dev)).reshape(-1)
     mu = torch.cat([state.x, mu2])
     sr = torch.zeros((na, na), dtype=dtype, device=dev)
@@ -589,9 +588,8 @@ def redirect_reset(state: FilterState, theta_odo: torch.Tensor,
     x_new[-3] = state.x[-3]
     x_new[-1] = theta_odo.to(dtype)
     s_diag = torch.ones(cfg.state_dim, dtype=dtype, device=dev)
-    s_diag[-4:] = torch.tensor(
-        [cfg.sigma_x, cfg.sigma_y, cfg.sigma_z, cfg.sigma_theta],
-        dtype=dtype, device=dev)
+    s_diag[-4:] = control.constant(
+        (cfg.sigma_x, cfg.sigma_y, cfg.sigma_z, cfg.sigma_theta), dtype, dev)
     lm = state.lm
     zero_i = torch.zeros_like(lm.n_predict)
     lm_new = replace(

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig
-from ..ops import qr_r
+from ..ops import control, qr_r
 from ..ops.linalg import chol_psd_flagged, gram_rows
 from .sigma import deviations, generate_sigma, ut_weights
 from .state import FilterState, PredictCache, count_repairs, replace
@@ -98,9 +98,14 @@ def structured_sqrt_gram_rows(S: torch.Tensor, Ep: torch.Tensor,
     return (R, rep) if with_flag else R
 
 
+def _robot_rows(D: int, device) -> torch.Tensor:
+    """Indices of the state rows x, y, theta (built once per device)."""
+    return control.constant((D - 4, D - 3, D - 1), torch.int64, device)
+
+
 def _motion_sqrt_gram(S: torch.Tensor, sig: torch.Tensor, w, D: int,
                       na: int):
-    ridx = torch.tensor([D - 4, D - 3, D - 1], device=S.device)
+    ridx = _robot_rows(D, S.device)
     return structured_sqrt_gram(S, sig[:D], ridx, w, na, with_flag=True)
 
 
@@ -142,7 +147,7 @@ def motion_predict_implicit(state: FilterState, odo_prev: torch.Tensor,
     mt = _control_noise(rot1, trans, rot2, cfg, dtype)
 
     # (3, 2Na+1) values of state rows x, y, theta across the sigma set
-    ridx = torch.tensor([D - 4, D - 3, D - 1], device=dev)
+    ridx = _robot_rows(D, dev)
     cols = torch.cat([state.S[:, ridx].T,
                       torch.zeros((3, 5), dtype=dtype, device=dev)], dim=1)
     mu_r = state.x[ridx][:, None]

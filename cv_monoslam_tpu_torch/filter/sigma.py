@@ -15,6 +15,7 @@ import math
 import torch
 
 from ..config import SlamConfig
+from ..ops import control
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,9 +32,16 @@ class UTWeights:
         return 2 * self.na + 1
 
     def mean_weights(self, dtype, device) -> torch.Tensor:
-        w = torch.full((self.n_sigma,), self.wi, dtype=dtype, device=device)
-        w[0] = self.wm0
-        return w
+        """(2na+1,) mean weights [wm0, wi, ..., wi], built once per device
+        and dtype with two fills (no upload; never written into)."""
+        def build():
+            w = torch.full((self.n_sigma,), self.wi, dtype=dtype,
+                           device=device)
+            w[:1].fill_(self.wm0)
+            return w
+
+        return control.cached(("mean_weights", self.n_sigma, self.wm0,
+                               self.wi, dtype, torch.device(device)), build)
 
 
 def ut_weights(na: int, cfg: SlamConfig) -> UTWeights:

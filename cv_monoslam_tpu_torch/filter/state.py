@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
+from ..ops import control
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]
@@ -130,8 +131,9 @@ class PredictCache:
 
 
 def inactive_feature_defaults(dtype, device) -> torch.Tensor:
-    return torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 1.0], dtype=dtype,
-                        device=device)
+    """The (6,) state of an inactive slot, built once per device and dtype
+    (never written into)."""
+    return control.constant((0.0, 0.0, 0.0, 0.0, 0.0, 1.0), dtype, device)
 
 
 def init_state(cfg: SlamConfig, theta0: float = 0.0, max_stored: int = 64,
@@ -220,11 +222,15 @@ def count_repairs(state: FilterState, *levels) -> FilterState:
     """Fold chol_psd_flagged repair levels into the state's counters:
     levels 1-3 -> n_repairs (benign regularization floors), level 4 ->
     n_escalations (the 1e6x rung: a partial covariance reset). A level is a
-    Python int or a 0-d integer tensor."""
+    Python int (added on the host: no upload) or a 0-d integer device
+    tensor (added on the device: no read)."""
     minor = state.n_repairs
     major = state.n_escalations
     for lv in levels:
-        lv = torch.as_tensor(lv, device=minor.device)
-        minor = minor + ((lv >= 1) & (lv <= 3)).to(torch.int32)
-        major = major + (lv >= 4).to(torch.int32)
+        if isinstance(lv, torch.Tensor):
+            minor = minor + ((lv >= 1) & (lv <= 3)).to(torch.int32)
+            major = major + (lv >= 4).to(torch.int32)
+        else:
+            minor = minor + int(1 <= lv <= 3)
+            major = major + int(lv >= 4)
     return replace(state, n_repairs=minor, n_escalations=major)

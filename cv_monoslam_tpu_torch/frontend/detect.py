@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SlamConfig
+from ..ops import vision
 
 
 def _filter_same_edge(x: torch.Tensor, k) -> torch.Tensor:
@@ -60,7 +61,7 @@ def corner_response(image: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     sob_t = [list(r) for r in zip(*sob)]
     gx = _filter_same_edge(img, sob)
     gy = _filter_same_edge(img, sob_t)
-    wb = float(torch.tensor(1.0 / block_size ** 2, dtype=torch.float32))
+    wb = float(np.float32(1.0 / block_size ** 2))
     box = [[wb] * block_size for _ in range(block_size)]
     ixx = _filter_same_edge(gx * gx, box)
     iyy = _filter_same_edge(gy * gy, box)
@@ -110,17 +111,9 @@ def gftt_candidates(image: torch.Tensor, cfg: SlamConfig):
     cand = top > float("-inf")
 
     # greedy min-dist in response order (GFTT's internal separation): an
-    # exact sequential recurrence over the (K, K) clash matrix. It runs on
-    # the host (one device read): as K launches of a few device ops each it
-    # cost more than the rest of the detection at K = 768
-    d2 = torch.sum((pix[:, None, :] - pix[None, :, :]) ** 2, dim=-1)
-    close = (d2 < cfg.min_dist2).cpu().numpy()
-    cand_h = cand.cpu().numpy()
-    kept_h = np.zeros(K, dtype=bool)
-    for i in range(K):
-        kept_h[i] = cand_h[i] and not np.any(kept_h[:i] & close[i, :i])
-    kept = torch.as_tensor(kept_h, device=image.device)
-    raw_rank = torch.cumsum(kept.to(torch.int32), 0, dtype=torch.int32) - 1
+    # exact sequential recurrence, one launch of the greedy kernel on the
+    # card (the JAX package's blocked lax.scan)
+    kept, raw_rank = vision.gftt_greedy_nms(pix, cand, cfg.min_dist2)
     return pix, kept, raw_rank, top
 
 
@@ -143,13 +136,15 @@ def candidate_filters(pix: torch.Tensor, cfg: SlamConfig,
         d2 = torch.sum((pix[:, None, :].to(avoid.dtype)
                         - avoid[None, :, :]) ** 2, dim=-1)
         near = torch.any((d2 < cfg.min_dist2) & nz[None, :], dim=1)
-        any_matched = torch.as_tensor(n_matched, device=pix.device) > 0
-        ok = ok & (~near | ~any_matched)
         if cfg.detect_zero_blocks:
             # reference isThereNoZero (SLAM.cpp:684-696)
-            has_zero = torch.any(avoid_valid
-                                 & ~torch.any(avoid != 0.0, dim=-1))
-            ok = ok & (~has_zero | ~any_matched)
+            near = near | torch.any(avoid_valid
+                                    & ~torch.any(avoid != 0.0, dim=-1))
+        # a device count stays on the device, a host count on the host
+        if isinstance(n_matched, torch.Tensor):
+            ok = ok & (~near | ~(n_matched > 0))
+        elif n_matched > 0:
+            ok = ok & ~near
     return ok
 
 
@@ -174,7 +169,8 @@ def escalate_raws(kept: torch.Tensor, raw_rank: torch.Tensor,
     first = torch.argmax(enough.to(torch.int32))
     idx = torch.where(torch.any(enough), first,
                       torch.full_like(first, steps - 1))
-    return ladder[idx]
+    # a 0-d tensor index would be read on the host: index with (1,)
+    return ladder[idx.reshape(1)][0]
 
 
 def detect_corners(image: torch.Tensor, cfg: SlamConfig,
@@ -194,9 +190,7 @@ def detect_corners(image: torch.Tensor, cfg: SlamConfig,
         base_raws = cfg.n_process_raws
     pix, kept, raw_rank, resp = gftt_candidates(image, cfg)
     fok = candidate_filters(pix, cfg, avoid, avoid_valid, n_matched)
-    raws = escalate_raws(kept, raw_rank, fok,
-                         torch.as_tensor(n_map, device=image.device),
-                         n_loop, base_raws, cfg)
+    raws = escalate_raws(kept, raw_rank, fok, n_map, n_loop, base_raws, cfg)
     valid = kept & fok & (raw_rank < raws)
     return pix, valid, resp
 

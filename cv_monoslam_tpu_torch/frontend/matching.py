@@ -25,6 +25,7 @@ from ..config import SlamConfig
 from ..filter.state import FilterState, replace
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
+from ..ops import control
 from ..ops.vision import (gather_regions, ncc_score_map, ncc_score_map_ref,
                           warp_bilinear, warp_bilinear_ref,
                           warp_ncc_score_map, warp_ncc_score_map_ref,
@@ -71,16 +72,16 @@ def warp_matrices(state: FilterState, cfg: SlamConfig) -> torch.Tensor:
     c0 = lm.init_trans                               # (M,3)
     d0 = lm.xyz[:, 2] - c0[:, 2]
     d0 = torch.where(torch.abs(d0) < 1e-6, torch.full_like(d0, 1e-6), d0)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+    ez = control.constant((0.0, 0.0, 1.0), dtype, dev)
     n0 = torch.einsum("mji,j->mi", r0, ez)           # r0^T ez
     R10 = torch.einsum("ji,mjk->mik", r1, r0)        # r1^T r0
     t10 = torch.einsum("ji,mj->mi", r1, c0 - c1)
-    K = torch.tensor([[cam.f1, 0.0, cam.cx],
-                      [0.0, cam.f2, cam.cy],
-                      [0.0, 0.0, 1.0]], dtype=dtype, device=dev)
-    Kinv = torch.tensor([[1.0 / cam.f1, 0.0, -cam.cx / cam.f1],
-                         [0.0, 1.0 / cam.f2, -cam.cy / cam.f2],
-                         [0.0, 0.0, 1.0]], dtype=dtype, device=dev)
+    K = control.constant(((cam.f1, 0.0, cam.cx),
+                          (0.0, cam.f2, cam.cy),
+                          (0.0, 0.0, 1.0)), dtype, dev)
+    Kinv = control.constant(((1.0 / cam.f1, 0.0, -cam.cx / cam.f1),
+                             (0.0, 1.0 / cam.f2, -cam.cy / cam.f2),
+                             (0.0, 0.0, 1.0)), dtype, dev)
     H = torch.einsum(
         "ij,mjk,kl->mil", K,
         R10 + t10[:, :, None] * n0[:, None, :] / d0[:, None, None],
@@ -120,7 +121,7 @@ def region_origins(centers: torch.Tensor, H: int, W: int,
     hp_m, hs = cfg.hp_match, cfg.hp_init        # max half-window = hp_init
     Rg = 2 * hs + 1 + 2 * hp_m                  # region side, W1 + Pm - 1
     base = centers - (hs + hp_m)
-    hi = torch.tensor([W - Rg, H - Rg], dtype=base.dtype, device=base.device)
+    hi = control.constant((W - Rg, H - Rg), base.dtype, base.device)
     return torch.minimum(torch.clamp(base, min=0), hi)
 
 

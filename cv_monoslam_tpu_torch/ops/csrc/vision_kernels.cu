@@ -7,6 +7,11 @@
 // Every kernel computes the same function as its plain PyTorch version in
 // cv_monoslam_tpu_torch/ops/vision.py (ncc_score_map_ref, warp_bilinear_ref,
 // warp_ncc_score_map_ref), which chip_smoke.py holds it against on the card.
+//
+// Launch counts: a launch captured in a CUDA graph runs on every replay
+// without a call of its wrapper, so thread 0 of block 0 of every launch adds
+// one to the int32 device counter the wrapper passes in
+// (vision.device_counts reads them).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -42,10 +47,11 @@ namespace {
 // multiply-add, wsum and wsq recomputed by every thread, the template
 // normalized by eight torch launches before it) was bound by shared-memory
 // loads and by those launches: 0.038 / 0.067 ms at M = 32 / 576. This one
-// reads 0.010 / 0.016 ms (H100 80GB HBM3 at 700 W, chip_smoke.py); what is
-// left above the floor is a chain of short phases (copy in, normalize,
-// column sums, window sums) that each wait on memory or on a barrier, and
-// the tap loop.
+// read 0.010 / 0.016 ms with FMA taps and reads 0.0118 / 0.0183 ms with the
+// taps rounded as the plain version rounds them (H100 80GB HBM3 at 700 W,
+// chip_smoke.py, both in one call); what is left above the floor is a chain
+// of short phases (copy in, normalize, column sums, window sums) that each
+// wait on memory or on a barrier, and the tap loop.
 //
 // Design.
 // * Mapping. The TPU kernel puts landmarks on the 128-wide lane axis for
@@ -86,6 +92,14 @@ namespace {
 //   M = 32, 0.0103 ms whole against 0.0106 ms in bands; M = 576, 0.0156
 //   against 0.0216 ms (H100 80GB HBM3 at 700 W, both timed by a version of
 //   chip_smoke.py that could launch either). The bands were taken out.
+// * Taps rounded as the plain version rounds them. num += p_hat * reg is a
+//   product and a sum rounded on their own (torch's separate mul and add),
+//   not an FMA: the partial sums of a zero-mean template run up to ~10^3
+//   while the final num can be far smaller, and on a low-texture window
+//   sqrt(wvar) is small, so the FMA's other rounding reached 3.1e-5 in a
+//   score on config-4 frames (the 2e-5 the check allows on the kernel's own
+//   p_hat). With both roundings the scores on a given p_hat are the plain
+//   version's bits.
 // * Shapes. pm and w1 are template parameters; <17, 21> is the shape every
 //   configuration uses and unrolls the px loops. <0, 0> is the same kernel
 //   with run-time bounds for any other shape (taps in chunks of 4).
@@ -331,7 +345,8 @@ __device__ __forceinline__ void ncc_score_phases(const S& s,
       for (int k = 0; k < KC; ++k) {
         if (px0 + k < pm) {
 #pragma unroll
-          for (int j = 0; j < TW; ++j) num[j] = fmaf(t[k], r[k + j], num[j]);
+          for (int j = 0; j < TW; ++j)
+            num[j] = __fadd_rn(num[j], __fmul_rn(t[k], r[k + j]));
         }
       }
     }
@@ -366,11 +381,13 @@ __global__ void ncc_score_map_kernel(const float* __restrict__ regions,
                                      const float* __restrict__ patches,
                                      float* __restrict__ scores,
                                      float* __restrict__ p_hat,
-                                     int pm_rt, int w1_rt) {
+                                     int pm_rt, int w1_rt,
+                                     int* __restrict__ launches) {
   const NccShape<PM, W1> s(pm_rt, w1_rt);
   const int m = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  if (m == 0 && tid == 0) atomicAdd(launches, 1);
   extern __shared__ float4 smem4[];
   const NccSmem sm(reinterpret_cast<float*>(smem4), s);
 
@@ -459,9 +476,11 @@ __global__ void warp_bilinear_kernel(const float* __restrict__ patches,
                                      const float* __restrict__ su,
                                      const float* __restrict__ sv,
                                      float* __restrict__ out,
-                                     int m, int pi, int po) {
+                                     int m, int pi, int po,
+                                     int* __restrict__ launches) {
   const long long total = (long long)m * po * po;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx == 0) atomicAdd(launches, 1);
   if (idx >= total) return;
   const int k = (int)(idx / ((long long)po * po));
   out[idx] = bilinear_sample(patches + (size_t)k * pi * pi, pi, su[idx],
@@ -544,12 +563,14 @@ __global__ void warp_ncc_score_map_kernel(const float* __restrict__ image,
                                           float* __restrict__ warped,
                                           float* __restrict__ p_hat,
                                           int img_h, int img_w, int pm_rt,
-                                          int w1_rt, int pi_rt) {
+                                          int w1_rt, int pi_rt,
+                                          int* __restrict__ launches) {
   const NccShape<PM, W1> s(pm_rt, w1_rt);
   const int pi = PI > 0 ? PI : pi_rt;
   const int m = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  if (m == 0 && tid == 0) atomicAdd(launches, 1);
   extern __shared__ float4 smem4[];
   const NccSmem sm(reinterpret_cast<float*>(smem4), s);
   float* pat = sm.end;                    // the init patch (pi, pi)
@@ -623,7 +644,7 @@ extern "C" {
 int cvms_ncc_score_map_f32(const void* regions, const void* patches,
                            void* scores, void* p_hat, int m, int pm, int w1,
                            int threads, int smem_bytes, int compiled_shape,
-                           void* stream) {
+                           void* launches, void* stream) {
   const unsigned grid = (unsigned)m;
   const float* r = (const float*)regions;
   const float* p = (const float*)patches;
@@ -631,11 +652,11 @@ int cvms_ncc_score_map_f32(const void* regions, const void* patches,
     if (pm != 17 || w1 != 21) return (int)cudaErrorInvalidValue;
     ncc_score_map_kernel<17, 21>
         <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-            r, p, (float*)scores, (float*)p_hat, pm, w1);
+            r, p, (float*)scores, (float*)p_hat, pm, w1, (int*)launches);
   } else {
     ncc_score_map_kernel<0, 0>
         <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
-            r, p, (float*)scores, (float*)p_hat, pm, w1);
+            r, p, (float*)scores, (float*)p_hat, pm, w1, (int*)launches);
   }
   return (int)cudaGetLastError();
 }
@@ -643,13 +664,13 @@ int cvms_ncc_score_map_f32(const void* regions, const void* patches,
 // patches (m, pi, pi), su/sv/out (m, po, po); float32, contiguous.
 int cvms_warp_bilinear_f32(const void* patches, const void* su,
                            const void* sv, void* out, int m, int pi, int po,
-                           void* stream) {
+                           void* launches, void* stream) {
   const long long total = (long long)m * po * po;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   warp_bilinear_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)patches, (const float*)su, (const float*)sv, (float*)out,
-      m, pi, po);
+      m, pi, po, (int*)launches);
   return (int)cudaGetLastError();
 }
 
@@ -665,7 +686,8 @@ int cvms_warp_ncc_score_map_f32(const void* image, const void* base,
                                 void* scores, void* warped, void* p_hat,
                                 int m, int h, int w, int pm, int w1, int pi,
                                 int threads, int smem_bytes,
-                                int compiled_shape, void* stream) {
+                                int compiled_shape, void* launches,
+                                void* stream) {
   const unsigned grid = (unsigned)m;
   const float* im = (const float*)image;
   const int* b = (const int*)base;
@@ -676,12 +698,12 @@ int cvms_warp_ncc_score_map_f32(const void* image, const void* base,
     warp_ncc_score_map_kernel<17, 21, 21>
         <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
             im, b, a, p, (float*)scores, (float*)warped, (float*)p_hat, h, w,
-            pm, w1, pi);
+            pm, w1, pi, (int*)launches);
   } else {
     warp_ncc_score_map_kernel<0, 0, 0>
         <<<grid, threads, smem_bytes, (cudaStream_t)stream>>>(
             im, b, a, p, (float*)scores, (float*)warped, (float*)p_hat, h, w,
-            pm, w1, pi);
+            pm, w1, pi, (int*)launches);
   }
   return (int)cudaGetLastError();
 }

@@ -7,16 +7,22 @@ which keeps about three decimal digits and makes covariance Grams
 indefinite.
 
 ``torch.linalg.cholesky`` raises on a non-PD input, where JAX's returns NaN;
-the repair ladder below keys off ``cholesky_ex``'s ``info`` and fills a
+the repair ladder below keys off the factorization's ``info`` and fills a
 failed factor with NaN as JAX does, so callers see JAX's failure
-semantics.
+semantics. On the card the factorization is cuSOLVER's potrf called with a
+handle of its own per stream (``_potrf_upper``), the call
+``torch.linalg.cholesky_ex`` makes, so that a captured CUDA graph can hold
+it inside a conditional node; on the CPU it is ``cholesky_ex``.
 """
 
 from __future__ import annotations
 
 import contextvars
+import ctypes
 
 import torch
+
+from . import control
 
 #: ``(mesh, shard_sqrt)`` made ambient by ``parallel.mesh.set_mesh``: the
 #: mesh the joint update factorizes across (``cfg.dist_chol_panel > 0``),
@@ -46,18 +52,106 @@ def gram_rows(a: torch.Tensor, b: torch.Tensor | None = None
     return mesh.all_reduce(a[lo:hi].T @ b[lo:hi])
 
 
+# cuSOLVER's potrf through a handle of our own for each stream. PyTorch's
+# one handle per thread moves between streams; inside a CUDA graph capture,
+# a factorization large enough for cuSOLVER to call cuBLAS (config 3's) on
+# a stream other than the one the handle last ran on makes cuSOLVER's
+# internal cuBLAS allocate stream-ordered memory, which a conditional body
+# cannot hold (graph instantiation fails). A handle that never leaves its
+# stream does not. Same call as ``torch.linalg.cholesky_ex`` makes
+# (cusolverDnXpotrf, default params), so the same bits.
+_CUSOLVER = None
+_HANDLES: dict = {}
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_CUDA_R = {torch.float32: 0, torch.float64: 1}       # cudaDataType
+_UPPER = 1                                            # CUBLAS_FILL_MODE_UPPER
+
+
+def _cusolver():
+    global _CUSOLVER
+    if _CUSOLVER is None:
+        if control.capturing() is not None:
+            raise RuntimeError("cuSOLVER first loaded inside a CUDA graph "
+                               "capture")
+        # the library PyTorch loaded (its linear algebra loads it lazily)
+        torch.linalg.cholesky_ex(torch.ones((1, 1), device="cuda"))
+        path = "libcusolver.so.11"
+        with open("/proc/self/maps") as maps:
+            for line in maps:
+                if "libcusolver.so" in line:
+                    path = line.split()[-1]
+                    break
+        lib = ctypes.CDLL(path)
+        lib.cusolverDnCreate.argtypes = [ctypes.POINTER(_P)]
+        lib.cusolverDnSetStream.argtypes = [_P, _P]
+        lib.cusolverDnCreateParams.argtypes = [ctypes.POINTER(_P)]
+        lib.cusolverDnXpotrf_bufferSize.argtypes = [
+            _P, _P, ctypes.c_int, _I64, ctypes.c_int, _P, _I64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t)]
+        lib.cusolverDnXpotrf.argtypes = [
+            _P, _P, ctypes.c_int, _I64, ctypes.c_int, _P, _I64, ctypes.c_int,
+            _P, ctypes.c_size_t, _P, ctypes.c_size_t, _P]
+        _CUSOLVER = lib
+    return _CUSOLVER
+
+
+def _cusolver_check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what} failed with cuSOLVER status {status}")
+
+
+def _potrf_upper(sym: torch.Tensor):
+    """cusolverDnXpotrf (upper) of the symmetric CUDA matrix ``sym``, in
+    place, on the current stream with that stream's own handle. Returns
+    (R row-major, info)."""
+    lib = _cusolver()
+    dev = sym.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, stream)
+    if key not in _HANDLES:
+        if control.capturing() is not None:
+            raise RuntimeError("a cuSOLVER handle first made inside a CUDA "
+                               "graph capture")
+        h, prm = _P(), _P()
+        _cusolver_check(lib.cusolverDnCreate(ctypes.byref(h)), "create")
+        _cusolver_check(lib.cusolverDnSetStream(h, _P(stream)), "set stream")
+        _cusolver_check(lib.cusolverDnCreateParams(ctypes.byref(prm)),
+                        "create params")
+        _HANDLES[key] = (h, prm)
+    h, prm = _HANDLES[key]
+    n, dt = sym.shape[0], _CUDA_R[sym.dtype]
+    dws, hws = ctypes.c_size_t(), ctypes.c_size_t()
+    _cusolver_check(lib.cusolverDnXpotrf_bufferSize(
+        h, prm, _UPPER, n, dt, _P(sym.data_ptr()), n, dt, ctypes.byref(dws),
+        ctypes.byref(hws)), "potrf buffer size")
+    if hws.value:
+        raise RuntimeError("cusolverDnXpotrf asks for host workspace")
+    work = torch.empty(max(dws.value, 1), dtype=torch.uint8, device=dev)
+    info = torch.empty((), dtype=torch.int32, device=dev)
+    _cusolver_check(lib.cusolverDnXpotrf(
+        h, prm, _UPPER, n, dt, _P(sym.data_ptr()), n, dt,
+        _P(work.data_ptr()), dws.value, None, 0, _P(info.data_ptr())),
+        "potrf")
+    # column-major upper factor -> row-major, zero below the diagonal
+    return torch.triu(sym.T).contiguous(), info
+
+
 def _chol_upper(g: torch.Tensor):
     """Upper Cholesky of the symmetrized ``g`` (JAX symmetrizes its input
-    the same way). Returns (R, bad) with ``bad`` a Python bool, read on the
-    host (one device sync); a failed factor is NaN on and above the diagonal
-    and 0 below, as JAX returns it."""
-    r, info = torch.linalg.cholesky_ex(0.5 * (g + g.T), upper=True)
-    bad = bool((info != 0) | ~torch.isfinite(r).all())
-    if bad:
-        return torch.triu(torch.full_like(r, float("nan"))), bad
-    # row-major copy: ``upper=True`` may hand back a transposed view, and the
-    # products downstream round differently on another memory layout
-    return r.contiguous(), bad
+    the same way). Returns (R, bad) with ``bad`` a 0-d bool device tensor:
+    the factorization failed (``info != 0``) or is not finite. R is the
+    row-major factor as it came out, not yet NaN-filled where it failed.
+    On CUDA, cuSOLVER's potrf through :func:`_potrf_upper`."""
+    sym = 0.5 * (g + g.T)
+    if sym.is_cuda:
+        r, info = _potrf_upper(sym)
+    else:
+        r, info = torch.linalg.cholesky_ex(sym, upper=True)
+        # row-major copy: ``upper=True`` may hand back a transposed view,
+        # and the products downstream round differently on another layout
+        r = r.contiguous()
+    return r, (info != 0) | ~torch.isfinite(r).all()
 
 
 def chol_psd_flagged(g: torch.Tensor, jitter: float):
@@ -67,25 +161,33 @@ def chol_psd_flagged(g: torch.Tensor, jitter: float):
     factorization PD, the analogue of the reference's Gill-Murray-Wright
     repair (SLAM.cpp:2197-2327).
 
-    Returns ``(R, level)``: ``level`` (Python int) is the number of jitter
-    rungs the factorization needed — 0 clean, 1-3 minor floors, 4 the
-    escalated 1e6x rung. If even that rung fails, R is NaN (on and above
-    the diagonal).
+    Returns ``(R, level)``: ``level`` (0-d int32 device tensor) is the number
+    of jitter rungs the factorization needed — 0 clean, 1-3 minor floors, 4
+    the escalated 1e6x rung. If even that rung fails, R is NaN on and above
+    the diagonal and 0 below, as JAX returns it.
 
-    Each rung's test is read on the host: one device sync for a clean
-    factorization, one more per extra rung. A clean factorization builds no
-    shifted copy of ``g``.
+    The ladder is the JAX one: per rung ``level += bad``, then a refactor of
+    the shifted copy under :func:`control.if_`, so a captured chunk keeps
+    every rung on the device. Eager, each rung's test is one host read, and
+    a clean factorization reads once and builds no shifted copy.
     """
     scale = torch.clamp(torch.max(torch.abs(torch.diagonal(g))), min=1.0)
     r, bad = _chol_upper(g)
-    level = 0
+    level = torch.zeros((), dtype=torch.int32, device=g.device)
     for mult in (1.0, 1e2, 1e3, 1e6):
-        if not bad:
-            break
-        level += 1
-        shifted = g.clone()
-        shifted.diagonal().add_((mult * jitter) * scale)
-        r, bad = _chol_upper(shifted)
+        level = level + bad.to(torch.int32)
+
+        def refactor(mult=mult):
+            shifted = g.clone()
+            shifted.diagonal().add_((mult * jitter) * scale)
+            r2, bad2 = _chol_upper(shifted)
+            r.copy_(r2)
+            bad.copy_(bad2)
+
+        if control.if_(bad, refactor) is False:
+            return r, level
+    control.if_(bad, lambda: r.copy_(
+        torch.triu(torch.full_like(r, float("nan")))))
     return r, level
 
 

@@ -1,5 +1,5 @@
-"""The vision kernels of the frame loop, their plain versions and their
-wrappers.
+"""The vision kernels of the frame loop, the two recurrence kernels, their
+plain versions and their wrappers.
 
 * :func:`warp_ncc_score_map` — the one the matcher runs: each landmark's
   init patch warped by its 2x2 affine map, its search region copied from
@@ -15,16 +15,23 @@ wrappers.
   :func:`ncc_score_map_with_templates` also returns the normalized
   templates, so the normalization and the scores can be checked apart;
 * :func:`warp_bilinear` — bilinear resample of each landmark's init patch at
-  fractional coordinates (replaces ``pallas_vision.py::warp_bilinear``).
+  fractional coordinates (replaces ``pallas_vision.py::warp_bilinear``);
+* :func:`store_slots` — the stored table's slot policy of
+  ``filter/lifecycle.store_features`` and :func:`gftt_greedy_nms` — GFTT's
+  greedy min-distance separation of ``frontend/detect.gftt_candidates``:
+  host loops of the port that the JAX package runs as ``lax.scan``
+  recurrences (``csrc/scan_kernels.cu``).
 
-Each wrapper launches its hand-written CUDA kernel
-(``csrc/vision_kernels.cu``) for CUDA tensors and raises if it cannot; for
-CPU tensors — and only for those — it computes the plain PyTorch version
-(``*_ref``), which is also what the kernels are tested against on the card.
-Each wrapper counts its kernel launches in a plain integer attribute
-(``ncc_score_map.launches``), so a run can show that it went through the
-kernel; ``normalized_templates.calls`` counts the plain normalization the
-same way, so a run can show that the CUDA path never takes it.
+Each wrapper launches its hand-written CUDA kernel (``csrc/*.cu``) for
+CUDA tensors and raises if it cannot; for CPU tensors — and only for
+those — it computes the plain PyTorch version (``*_ref``), which is also
+what the kernels are tested against on the card. Every kernel counts its
+own launches on the device (:func:`device_counts`): a launch captured in a
+CUDA graph runs on every replay without a call of its wrapper, and inside a
+conditional body only when its branch is taken, which the host cannot see.
+Launches of the warm-up frame before a capture are not counted.
+``normalized_templates.calls`` counts the plain normalization, so a run can
+show that the CUDA path never takes it.
 """
 
 from __future__ import annotations
@@ -34,20 +41,26 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, control
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cvms_ncc_score_map_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "cvms_warp_bilinear_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "cvms_warp_ncc_score_map_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "cvms_ncc_score_map_f32": [_P] * 4 + [_I] * 6 + [_P, _P],
+    "cvms_warp_bilinear_f32": [_P] * 4 + [_I] * 3 + [_P, _P],
+    "cvms_warp_ncc_score_map_f32": [_P] * 7 + [_I] * 9 + [_P, _P],
     "cvms_empty_launch": [_P],
+}
+_SCAN_SIGNATURES = {
+    "cvms_store_slots": [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 7,
+    "cvms_gftt_greedy_nms": [_P, _P, _I, ctypes.c_float] + [_P] * 4,
 }
 
 
-def _lib():
-    return _build.load(_SIGNATURES)
+def _lib(name: str = "vision_kernels"):
+    if name == "scan_kernels":
+        return _build.load(_SCAN_SIGNATURES, name)
+    return _build.load(_SIGNATURES, name)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -62,14 +75,16 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
-    """Call entry point ``fn(*args, stream)`` on ``dev``'s current stream.
+def _launch(name: str, fn: str, dev: torch.device, *args,
+            lib: str = "vision_kernels") -> None:
+    """Call entry point ``fn(*args, stream)`` of library ``lib`` on
+    ``dev``'s current stream.
 
     The stream handle comes from ``torch._C._cuda_getCurrentRawStream`` (what
     compiled PyTorch code uses; it builds no ``Stream`` object, which costs
     the host more than the launch itself), and the device context is entered
     only when ``dev`` is not the current device."""
-    entry = getattr(_lib(), fn)
+    entry = getattr(_lib(lib), fn)
     cur = torch.cuda.current_device()
     idx = cur if dev.index is None else dev.index
     if idx == cur:
@@ -200,8 +215,8 @@ def _ncc_cuda(regions, patches, scores, p_hat, pm: int, w1: int) -> None:
     _launch("ncc_score_map", "cvms_ncc_score_map_f32", regions.device,
             regions.data_ptr(), patches.data_ptr(), scores.data_ptr(),
             None if p_hat is None else p_hat.data_ptr(), m, pm, w1,
-            plan["threads"], plan["smem_bytes"], int(plan["compiled"]))
-    ncc_score_map.launches += 1
+            plan["threads"], plan["smem_bytes"], int(plan["compiled"]),
+            _device_counter(regions.device, "ncc_score_map").data_ptr())
 
 
 def ncc_score_map_with_templates(
@@ -248,9 +263,6 @@ def ncc_score_map(regions: torch.Tensor, patches: torch.Tensor, *, pm: int,
                          device=regions.device)
     _ncc_cuda(regions, patches, scores, None, pm, w1)
     return scores
-
-
-ncc_score_map.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -314,12 +326,9 @@ def warp_bilinear(patches: torch.Tensor, su: torch.Tensor,
     out = torch.empty(su.shape, dtype=torch.float32, device=patches.device)
     _launch("warp_bilinear", "cvms_warp_bilinear_f32", patches.device,
             patches.data_ptr(), su.data_ptr(), sv.data_ptr(),
-            out.data_ptr(), m, pi, po)
-    warp_bilinear.launches += 1
+            out.data_ptr(), m, pi, po,
+            _device_counter(patches.device, "warp_bilinear").data_ptr())
     return out
-
-
-warp_bilinear.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +436,8 @@ def _warp_ncc_cuda(image, base, A, init_patch, scores, warped, p_hat,
             init_patch.data_ptr(), scores.data_ptr(), warped.data_ptr(),
             None if p_hat is None else p_hat.data_ptr(), m, image.shape[0],
             image.shape[1], pm, w1, pi, plan["threads"], plan["smem_bytes"],
-            int(plan["compiled"]))
-    warp_ncc_score_map.launches += 1
+            int(plan["compiled"]),
+            _device_counter(image.device, "warp_ncc_score_map").data_ptr())
 
 
 def _empty(dev: torch.device, *shapes) -> tuple:
@@ -475,9 +484,6 @@ def warp_ncc_score_map(
     return scores, warped
 
 
-warp_ncc_score_map.launches = 0
-
-
 def warp_ncc_score_map_with_templates(
         image: torch.Tensor, base: torch.Tensor, A: torch.Tensor,
         init_patch: torch.Tensor, *, hp_init: int, hp_match: int
@@ -497,3 +503,175 @@ def warp_ncc_score_map_with_templates(
     outs = _empty(image.device, (m, w1, w1), (m, pm, pm), (m, pm, pm))
     _warp_ncc_cuda(image, base, A, init_patch, *outs, pm, w1)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Launch counters on the device
+# ---------------------------------------------------------------------------
+
+#: every kernel of this module, in the order of its slot in the counters
+KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear",
+           "store_slots", "gftt_greedy_nms")
+
+
+def _counts(dev) -> torch.Tensor:
+    """The (len(KERNELS),) int32 launch counters on ``dev``, zeroed."""
+    dev = torch.device(dev)
+    return control.cached(("launch_counts", dev), lambda: torch.zeros(
+        len(KERNELS), dtype=torch.int32, device=dev))
+
+
+def _device_counter(dev, name: str) -> torch.Tensor:
+    """The slot kernel ``name`` adds one to per launch; in warm-up (whose
+    results are thrown away) a scratch slot that nothing reads. Both are
+    built at the first call, so the warm-up frame before a capture builds
+    them."""
+    counts = _counts(dev)
+    if control.warming():
+        return control.cached(("warmup_counter", torch.device(dev)),
+                              lambda: torch.zeros(1, dtype=torch.int32,
+                                                  device=dev))
+    i = KERNELS.index(name)
+    return counts[i:i + 1]
+
+
+def device_counts(dev) -> dict:
+    """Launches of every kernel on ``dev`` since the last
+    :func:`reset_device_counts` (one device read)."""
+    return dict(zip(KERNELS, _counts(dev).tolist()))
+
+
+def reset_device_counts(dev) -> None:
+    _counts(dev).zero_()
+
+
+def store_slots_ref(mask: torch.Tensor, lid: torch.Tensor,
+                    valid: torch.Tensor, tlid: torch.Tensor,
+                    stamp: torch.Tensor, seq: torch.Tensor):
+    """Plain version of :func:`store_slots`: the JAX package's scan, one
+    record at a time, each step a masked update (no host read)."""
+    s = valid.shape[0]
+    ar = torch.arange(s, device=valid.device)
+    big = torch.iinfo(torch.int32).max
+    valid, tlid, stamp = valid.clone(), tlid.clone(), stamp.clone()
+    seq = seq.clone()
+    src = torch.full((s,), -1, dtype=torch.int32, device=valid.device)
+    slots = []
+    for j in range(mask.shape[0]):
+        dup = valid & (tlid == lid[j])
+        free = torch.argmin(valid.to(torch.int32))
+        oldest = torch.argmin(torch.where(valid, stamp,
+                                          torch.full_like(stamp, big)))
+        slot = torch.where(torch.any(~valid), free, oldest)
+        slot = torch.where(torch.any(dup), torch.argmax(dup.to(torch.int32)),
+                           slot)
+        hit = mask[j] & (ar == slot)
+        valid = valid | hit
+        stamp = torch.where(hit, seq, stamp)
+        tlid = torch.where(hit, lid[j], tlid)
+        src = torch.where(hit, torch.full_like(src, j), src)
+        slots.append(torch.where(mask[j], slot, -1).to(torch.int32))
+        seq = seq + mask[j].to(seq.dtype)
+    slot = (torch.stack(slots) if slots
+            else torch.zeros(0, dtype=torch.int32, device=valid.device))
+    return slot, src, valid, stamp, seq
+
+
+def store_slots(mask: torch.Tensor, lid: torch.Tensor, valid: torch.Tensor,
+                tlid: torch.Tensor, stamp: torch.Tensor, seq: torch.Tensor):
+    """The stored table's slot policy for the records ``mask`` selects, in
+    record order (``cv_monoslam_tpu/filter/lifecycle.py::store_features``):
+    a valid slot holding the record's landmark id, else the first free
+    slot, else the valid slot with the oldest stamp; each insert takes
+    stamp ``seq`` and advances it.
+
+    mask (M,) bool, lid (M,) int32 record ids; table valid (S,) bool, tlid
+    and stamp (S,) int32, seq () int32. Returns (slot (M,) int32, -1 where
+    not stored; src (S,) int32, the record that wrote each slot last, -1
+    where none; the new valid, stamp and seq). On CUDA tensors one launch
+    of ``csrc/scan_kernels.cu::store_slots_kernel``, counted on the device;
+    on CPU tensors :func:`store_slots_ref`."""
+    m, s = mask.shape[0], valid.shape[0]
+    if (lid.shape != (m,) or tlid.shape != (s,) or stamp.shape != (s,)
+            or seq.dim() != 0):
+        raise ValueError(f"store_slots: shapes mask {tuple(mask.shape)}, "
+                         f"lid {tuple(lid.shape)}, table {tuple(valid.shape)}"
+                         f", {tuple(tlid.shape)}, {tuple(stamp.shape)}, seq "
+                         f"{tuple(seq.shape)}")
+    if mask.device.type == "cpu":
+        return store_slots_ref(mask, lid, valid, tlid, stamp, seq)
+    if mask.device.type != "cuda":
+        raise ValueError(f"store_slots: no kernel for {mask.device}")
+    dev = mask.device
+    for t, dt in ((mask, torch.bool), (lid, torch.int32),
+                  (valid, torch.bool), (tlid, torch.int32),
+                  (stamp, torch.int32), (seq, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"store_slots: wants contiguous {dt} on {dev}, "
+                            f"got {t.dtype} on {t.device}")
+    slot = torch.empty(m, dtype=torch.int32, device=dev)
+    src = torch.empty(s, dtype=torch.int32, device=dev)
+    valid_out = torch.empty(s, dtype=torch.bool, device=dev)
+    stamp_out = torch.empty(s, dtype=torch.int32, device=dev)
+    seq_out = torch.empty((), dtype=torch.int32, device=dev)
+    _launch("store_slots", "cvms_store_slots", dev, mask.data_ptr(),
+            lid.data_ptr(), m, valid.data_ptr(), tlid.data_ptr(),
+            stamp.data_ptr(), seq.data_ptr(), s, slot.data_ptr(),
+            src.data_ptr(), valid_out.data_ptr(), stamp_out.data_ptr(),
+            seq_out.data_ptr(), _device_counter(dev, "store_slots").data_ptr(),
+            lib="scan_kernels")
+    return slot, src, valid_out, stamp_out, seq_out
+
+
+#: corners the greedy kernel's shared memory holds (12 bytes each in 48 KB)
+GREEDY_MAX_K = 4096
+
+
+def gftt_greedy_nms_ref(pix: torch.Tensor, cand: torch.Tensor,
+                        min_dist2: float):
+    """Plain version of :func:`gftt_greedy_nms`: the sequential recurrence
+    over the (K, K) clash matrix, one corner at a time (no host read)."""
+    d2 = torch.sum((pix[:, None, :] - pix[None, :, :]) ** 2, dim=-1)
+    close = d2 < min_dist2
+    kept = torch.zeros_like(cand)
+    for i in range(cand.shape[0]):
+        kept[i] = cand[i] & ~torch.any(kept[:i] & close[i, :i])
+    raw_rank = torch.cumsum(kept.to(torch.int32), 0, dtype=torch.int32) - 1
+    return kept, raw_rank
+
+
+def gftt_greedy_nms(pix: torch.Tensor, cand: torch.Tensor,
+                    min_dist2: float):
+    """GFTT's greedy min-distance separation in response order
+    (``cv_monoslam_tpu/frontend/detect.py::gftt_candidates``):
+    ``kept[i] = cand[i] & ~any(kept[j] & (|pix_i - pix_j|^2 < min_dist2),
+    j < i)``, and ``raw_rank`` = each survivor's 0-based position in the
+    greedy sequence.
+
+    pix (K, 2) float32, cand (K,) bool. Returns (kept (K,) bool, raw_rank
+    (K,) int32). On CUDA tensors one launch of
+    ``csrc/scan_kernels.cu::gftt_greedy_nms_kernel``, counted on the
+    device; on CPU tensors :func:`gftt_greedy_nms_ref`."""
+    k = cand.shape[0]
+    if pix.shape != (k, 2) or cand.dim() != 1:
+        raise ValueError(f"gftt_greedy_nms: shapes {tuple(pix.shape)}, "
+                         f"{tuple(cand.shape)}")
+    if pix.device.type == "cpu":
+        return gftt_greedy_nms_ref(pix, cand, min_dist2)
+    if pix.device.type != "cuda":
+        raise ValueError(f"gftt_greedy_nms: no kernel for {pix.device}")
+    if k > GREEDY_MAX_K:
+        raise ValueError(f"gftt_greedy_nms: K = {k} > {GREEDY_MAX_K}")
+    dev = pix.device
+    for t, dt in ((pix, torch.float32), (cand, torch.bool)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"gftt_greedy_nms: wants contiguous {dt} on "
+                            f"{dev}, got {t.dtype} on {t.device}")
+    kept = torch.empty(k, dtype=torch.bool, device=dev)
+    raw_rank = torch.empty(k, dtype=torch.int32, device=dev)
+    _launch("gftt_greedy_nms", "cvms_gftt_greedy_nms", dev, pix.data_ptr(),
+            cand.data_ptr(), k, float(min_dist2), kept.data_ptr(),
+            raw_rank.data_ptr(),
+            _device_counter(dev, "gftt_greedy_nms").data_ptr(),
+            lib="scan_kernels")
+    return kept, raw_rank
