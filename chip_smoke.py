@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile  # the smoke, then a profiled chunk
     python3 chip_smoke.py --profile --config 3   # ... of config 3
     python3 chip_smoke.py --profile --config 4   # ... of config 4
+    python3 chip_smoke.py --baseline DIR   # ... the recurrence kernels
+                                           # timed against DIR's
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
@@ -38,8 +40,11 @@ non-zero and prints no result):
    is one captured CUDA graph with the filter's gates as conditional nodes
    on the device. The two recurrence kernels (``store_slots``,
    ``gftt_greedy_nms``, ``csrc/scan_kernels.cu``) equal their plain
-   versions exactly on seeded inputs (dup, free and eviction tables; K =
-   48, 768 and 77) and on inputs captured from the eager runs below. Then
+   versions exactly on seeded inputs that probe their designs' seams
+   (:func:`seeded_scan_checks`) and on inputs captured from the eager runs
+   below; their times (:func:`scan_times`) cycle through four distinct
+   input sets and, with ``--baseline DIR``, run in turns with another
+   checkout's kernels, beside the greedy pass's other route. Then
    for config 1 (chunk 32), config 3 (chunk 8, the detect and the tracking
    graph) and config 4's filter (chunk 8): (a) one window from one state
    through the graph and through an eager chunk (the private switch
@@ -853,11 +858,20 @@ def launch_problems(counts: dict, expected: int, what: str) -> list:
 # ---------------------------------------------------------------------------
 
 
+#: seeded tables of phase 3b (d): see :func:`store_inputs`
+STORE_CASES = ("free", "dup", "evict", "lid_thrice", "lid_in_two_slots",
+               "equal_stamps", "stamps_near_max", "all_stored_empty")
+
+
 def store_inputs(case: str, rng, dev, m: int = 576, s: int = 64):
     """(mask, lid, valid, tlid, stamp, seq) for ``store_slots``: ``free`` a
     half-empty table, ``dup`` records that refresh stored landmarks (one
     twice in the batch), ``evict`` a full table with more records than
-    slots."""
+    slots, ``lid_thrice`` one new landmark three times in the batch,
+    ``lid_in_two_slots`` a table that already holds one landmark in two
+    slots and two records of it, ``equal_stamps`` every valid slot with
+    one stamp, ``stamps_near_max`` stamps and seq within 2 M of 2^31 - 1,
+    ``all_stored_empty`` every record stored on an empty table."""
     valid = np.ones(s, bool)
     tlid = (1000 + np.arange(s)).astype(np.int32)
     stamp = rng.permutation(s).astype(np.int32)
@@ -871,20 +885,52 @@ def store_inputs(case: str, rng, dev, m: int = 576, s: int = 64):
         lid[pick] = tlid[rng.choice(s, 12)]
         lid[pick[1]] = lid[pick[0]]
         mask[pick] = True
-    else:
+    elif case == "evict":
         mask = rng.random(m) < 0.3
+    elif case == "lid_thrice":
+        pick = rng.choice(m, 3, replace=False)
+        lid[pick] = 777
+        mask[pick] = True
+    elif case == "lid_in_two_slots":
+        tlid[[s // 3, s - 1]] = 555
+        pick = rng.choice(m, 2, replace=False)
+        lid[pick] = 555
+        mask[pick] = True
+    elif case == "equal_stamps":
+        stamp[:] = 5
+    elif case == "stamps_near_max":
+        stamp = (2 ** 31 - 1 - rng.permutation(s)).astype(np.int32)
+        seq = 2 ** 31 - 1 - 2 * m
+    elif case == "all_stored_empty":
+        valid[:] = False
+        stamp[:] = 0
+        seq = 0
+        mask[:] = True
+    else:
+        raise ValueError(case)
     t = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
     return (t(mask, bool), t(lid, np.int32), t(valid, bool),
             t(tlid, np.int32), t(stamp, np.int32), t(seq, np.int32))
 
 
-def greedy_inputs(k: int, rng, dev):
-    """(pix, cand) for ``gftt_greedy_nms``: integer pixels crowded into a
+def greedy_inputs(k: int, rng, dev, family: str = "crowded"):
+    """(pix, cand) for ``gftt_greedy_nms``: ``crowded`` integer pixels in a
     quarter of the frame (many within min_dist of each other), the last
-    tenth not candidates."""
+    tenth not candidates; ``identical`` every corner on one pixel, all
+    candidates (only the first is kept); ``none`` no candidate;
+    ``interleaved`` every third corner not a candidate."""
     pix = np.stack([rng.integers(0, FRAME_W // 2, k),
                     rng.integers(0, FRAME_H // 2, k)], 1).astype(np.float32)
     cand = np.arange(k) < k - k // 10
+    if family == "identical":
+        pix[:] = (17.0, 5.0)
+        cand[:] = True
+    elif family == "none":
+        cand[:] = False
+    elif family == "interleaved":
+        cand = np.arange(k) % 3 != 1
+    elif family != "crowded":
+        raise ValueError(family)
     return (torch.as_tensor(pix, device=dev),
             torch.as_tensor(cand, device=dev))
 
@@ -941,44 +987,155 @@ def plain_ms(fn, args, reps: int = 3) -> float:
     return statistics.median(walls)
 
 
-def scan_times(dev, floor: float, runs: dict) -> dict:
-    """Kernel and plain times of the two recurrences on inputs the runs of
-    phase 3b gave them (``runs``: config -> captured argument sets), at the
-    main path's shapes: store_slots at config 3 (M = 576, S = 64), the
-    greedy pass at config 1 (K = 48) and config 3 (K = 768); and
-    store_slots on a full table with 30 % of 576 records stored (the
-    heaviest store a frame could ask for). The kernels by :func:`time_ms`;
-    the plain versions, host loops of small operations, by
-    :func:`plain_ms`. Bounds count what each input needs."""
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """``module.name`` set to ``value`` while active."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def load_baseline(root: str):
+    """The ``ops/vision.py`` of another checkout of the port at ``root``,
+    with its own ``_build`` and ``control``, under the package name
+    ``baseline_ops``: its recurrence kernels are built from that
+    checkout's sources into that checkout's ``.cache/``."""
+    import importlib
+    import types
+
+    pkg = types.ModuleType("baseline_ops")
+    pkg.__path__ = [os.path.join(os.path.abspath(root),
+                                 "cv_monoslam_tpu_torch", "ops")]
+    sys.modules["baseline_ops"] = pkg
+    mod = importlib.import_module("baseline_ops.vision")
+    mod._build.build(["scan_kernels"])
+    return mod
+
+
+def scan_variants(sets: list, kind: str, rng, n: int = 4) -> list:
+    """Up to ``n`` distinct argument sets: ``sets``, completed where it
+    holds fewer by seeded variants that ask for the same work (a greedy
+    input with every corner moved by at most one pixel; a store input with
+    the table's stamps permuted)."""
+    out = list(sets[:n])
+    i = 0
+    while len(out) < n:
+        base = sets[i % len(sets)]
+        i += 1
+        if kind == "greedy":
+            pix, cand, md2 = base
+            d = rng.integers(-1, 2, tuple(pix.shape)).astype(np.float32)
+            out.append((pix + torch.as_tensor(d, device=pix.device), cand,
+                        md2))
+        else:
+            mask, lid, valid, tlid, stamp, seq = base
+            perm = torch.as_tensor(rng.permutation(stamp.shape[0]),
+                                   device=stamp.device)
+            out.append((mask, lid, valid, tlid, stamp[perm].contiguous(),
+                        seq))
+    return out
+
+
+def scan_times(dev, floor: float, runs: dict, baseline=None) -> dict:
+    """Kernel and plain times of the two recurrences at the main path's
+    shapes, each on four distinct argument sets that :func:`time_ms` cycles
+    through: store_slots on the inputs config 3's runs of phase 3b gave it
+    (M = 576, S = 64) and on full tables with 30 % of 576 records stored
+    (the heaviest store a frame could ask for); the greedy pass on config
+    1's (K = 48) and config 3's (K = 768); captured sets completed by
+    :func:`scan_variants`. Beside each: the dependent steps of its chain
+    (stored records; ceil(K / 32) word-steps) and microseconds per step
+    above the launch floor. With ``baseline`` (:func:`load_baseline`):
+    that checkout's kernels and this tree's in turns (baseline, this,
+    this, baseline) on the same sets, the greedy pass by its other route
+    (one block or a grid), and last both greedy routes on seeded inputs
+    at K = 96 ... 384, where they cross (``GREEDY_ONE_BLOCK_MAX_K``). The
+    plain versions, host loops of small operations, by :func:`plain_ms`.
+    Bounds count what each input needs (the median over the sets)."""
     from cv_monoslam_tpu_torch.ops import vision
 
+    rng = np.random.default_rng(5)
+    cases = (
+        ("store_slots", "store",
+         scan_variants(runs["config3"]["store_slots"], "store", rng)),
+        ("store_slots_heavy", "store",
+         [store_inputs("evict", np.random.default_rng(5 + i), dev)
+          for i in range(4)]),
+        ("gftt_greedy_nms_k48", "greedy",
+         scan_variants(runs["config1"]["gftt_greedy_nms"], "greedy", rng)),
+        ("gftt_greedy_nms_k768", "greedy",
+         scan_variants(runs["config3"]["gftt_greedy_nms"], "greedy", rng)))
     out = {}
-    cases = (("store_slots", runs["config3"]["store_slots"][0]),
-             ("store_slots_heavy",
-              store_inputs("evict", np.random.default_rng(5), dev)),
-             ("gftt_greedy_nms_k48", runs["config1"]["gftt_greedy_nms"][0]),
-             ("gftt_greedy_nms_k768",
-              runs["config3"]["gftt_greedy_nms"][0]))
-    for name, args in cases:
-        if name.startswith("store"):
-            fn, ref, b = (vision.store_slots, vision.store_slots_ref,
-                          store_bound(args))
-            what = f"M={args[0].shape[0]} S={args[2].shape[0]}, " \
-                   f"{int(args[0].sum())} stored"
+    for name, kind, sets in cases:
+        if kind == "store":
+            call = lambda mod: mod.store_slots
+            ref, args = vision.store_slots_ref, sets
+            bounds = [store_bound(a) for a in sets]
+            steps = statistics.median(int(a[0].sum()) for a in sets)
+            what = (f"M={sets[0][0].shape[0]} S={sets[0][2].shape[0]}, "
+                    f"{[int(a[0].sum()) for a in sets]} stored")
         else:
-            md2 = args[2]
-            args = args[:2]
-            fn = lambda p, c, md2=md2: vision.gftt_greedy_nms(p, c, md2)
+            md2 = sets[0][2]
+            call = lambda mod, md2=md2: (
+                lambda p, c: mod.gftt_greedy_nms(p, c, md2))
             ref = lambda p, c, md2=md2: vision.gftt_greedy_nms_ref(p, c, md2)
-            b = greedy_bound(args, md2)
-            what = f"K={args[1].shape[0]}"
-        k, host = time_ms(fn, [args] * N_TIMED)
-        pl = plain_ms(ref, args)
-        out[name] = dict(ms=k, host_ms=host, plain_ms=pl, library_ms=None,
-                         shape=what, **b)
-        log(f"[time] {name} {what}: kernel {k:.4f} ms (host {host:.4f}), "
-            f"plain {pl:.4f} ms, bound {b['bound_ms'] * 1e3:.4f} us "
-            f"({b['bound_by']}), launch floor {floor:.4f} ms")
+            args = [a[:2] for a in sets]
+            bounds = [greedy_bound(a, md2) for a in args]
+            k = args[0][1].shape[0]
+            steps = -(-k // 32)
+            what = f"K={k}"
+        b = sorted(bounds, key=lambda x: x["bound_ms"])[len(bounds) // 2]
+        turns = ("baseline", "this", "this", "baseline") if baseline \
+            else ("this",)
+        runs_ms = {"this": [], "baseline": []}
+        for who in turns:
+            t, host = time_ms(call(vision if who == "this" else baseline),
+                              args)
+            runs_ms[who].append(t)
+            if who == "this" and len(runs_ms["this"]) == 1:
+                k_ms, host_ms = t, host
+        alt_ms = {}  # the greedy pass by its other route
+        if kind == "greedy" and baseline is not None:
+            grid = k > vision.GREEDY_ONE_BLOCK_MAX_K
+            with patched(vision, "GREEDY_ONE_BLOCK_MAX_K",
+                         vision.GREEDY_SMEM_MAX_K if grid else 0):
+                alt_ms["one block" if grid else "a grid"] = time_ms(
+                    call(vision), args)[0]
+        pl = plain_ms(ref, args[0])
+        per_step = (k_ms - floor) * 1e3 / max(steps, 1)
+        out[name] = dict(ms=k_ms, host_ms=host_ms, plain_ms=pl,
+                         library_ms=None, shape=what, steps=steps,
+                         us_per_step=per_step, ms_runs=runs_ms["this"],
+                         baseline_ms=runs_ms["baseline"], alt_ms=alt_ms,
+                         **b)
+        log(f"[time] {name} {what}: kernel {k_ms:.4f} ms (host "
+            f"{host_ms:.4f}; runs {[round(x, 4) for x in runs_ms['this']]}"
+            f"), plain {pl:.4f} ms, bound {b['bound_ms'] * 1e3:.4f} us "
+            f"({b['bound_by']}), launch floor {floor:.4f} ms; {steps} "
+            f"dependent steps, {per_step:.4f} us per step"
+            + "".join(f"; {a} {v:.4f} ms" for a, v in alt_ms.items())
+            + (f"; baseline {[round(x, 4) for x in runs_ms['baseline']]} "
+               f"ms (turns: baseline, this, this, baseline)"
+               if baseline else ""))
+    if baseline is None:
+        return out
+    # where the greedy pass's two routes cross (GREEDY_ONE_BLOCK_MAX_K)
+    out["greedy_routes"] = {}
+    for k in (96, 128, 192, 256, 384):
+        sets = [greedy_inputs(k, np.random.default_rng(20 + i), dev)
+                for i in range(4)]
+        fn = lambda p, c: vision.gftt_greedy_nms(p, c, 100.0)
+        row = {}
+        for route, limit in (("one block", vision.GREEDY_SMEM_MAX_K),
+                             ("a grid", 0)):
+            with patched(vision, "GREEDY_ONE_BLOCK_MAX_K", limit):
+                row[route] = time_ms(fn, sets)[0]
+        out["greedy_routes"][k] = row
+        log(f"[time] gftt_greedy_nms routes, seeded K={k}: "
+            f"{', '.join(f'{r} {v:.4f} ms' for r, v in row.items())}")
     return out
 
 
@@ -1158,7 +1315,58 @@ def routes_fps(sess, start, chunk: int, n_chunks: int) -> dict:
     return out
 
 
-def phase_chunk_graphs(dev, errs: dict, floor: float) -> dict:
+def seeded_scan_checks(dev, errs: dict) -> None:
+    """(d) on seeded inputs: store_slots on every table of
+    :data:`STORE_CASES` at S = 1, 40 and 64 (M = 576), on more records than
+    its block has threads (M = 1500) and at S = 200 and 1100 (a 256-thread
+    block; the table in shared memory, whose warp minimum is the 64-bit
+    key's, also on equal, near-maximal and zero stamps); the greedy pass
+    at K = 1, 31, 32, 33, 48, 77, 768, 1025 and 4096, on both sides of the
+    boundary between one block and one per 32 rows and of the one between
+    the bitmask in shared memory and in the scratch, by the other route at
+    K = 768 and 1344, and on the identical, no-candidate and interleaved
+    families."""
+    from cv_monoslam_tpu_torch.ops import vision
+
+    rng = np.random.default_rng(9)
+    for case in STORE_CASES:
+        for s in (1, 40, 64):
+            check_scan("store_slots", store_inputs(case, rng, dev, s=s),
+                       f"seeded {case} S={s}", errs)
+    for case, m, s in (("evict", 1500, 64), ("evict", 576, 200),
+                       ("free", 576, 1100), ("all_stored_empty", 576, 200)):
+        check_scan("store_slots", store_inputs(case, rng, dev, m=m, s=s),
+                   f"seeded {case} M={m} S={s}", errs)
+    for case in ("equal_stamps", "stamps_near_max", "all_stored_empty"):
+        check_scan("store_slots", store_inputs(case, rng, dev, s=1100),
+                   f"seeded {case} S=1100", errs)
+    b1, b2 = vision.GREEDY_ONE_BLOCK_MAX_K, vision.GREEDY_SMEM_MAX_K
+    for k in (1, 31, 32, 33, 48, 77, 768, 1025, 4096, b1, b1 + 1, b2,
+              b2 + 1):
+        check_scan("gftt_greedy_nms", greedy_inputs(k, rng, dev),
+                   f"seeded K={k}", errs, min_dist2=100.0)
+    with patched(vision, "GREEDY_ONE_BLOCK_MAX_K", b2):
+        for k in (768, b2):
+            check_scan("gftt_greedy_nms", greedy_inputs(k, rng, dev),
+                       f"seeded K={k}, one block", errs, min_dist2=100.0)
+    with patched(vision, "GREEDY_ONE_BLOCK_MAX_K", 0):
+        check_scan("gftt_greedy_nms", greedy_inputs(48, rng, dev),
+                   "seeded K=48, a grid", errs,
+                   min_dist2=100.0)
+    for family in ("identical", "none", "interleaved"):
+        for k in (33, 768):
+            args = greedy_inputs(k, rng, dev, family)
+            check_scan("gftt_greedy_nms", args, f"seeded {family} K={k}",
+                       errs, min_dist2=100.0)
+            kept, _ = vision.gftt_greedy_nms(*args, 100.0)
+            n_kept = int(kept.sum())
+            if family != "interleaved" and n_kept != (family == "identical"):
+                raise AssertionError(f"gftt_greedy_nms {family} K={k}: "
+                                     f"{n_kept} kept")
+
+
+def phase_chunk_graphs(dev, errs: dict, floor: float,
+                       baseline=None) -> dict:
     """The chunk machinery on the card: for config 1 (chunk 32), config 3
     (chunk 8, both detect keys) and config 4's filter (chunk 8): (a) graph
     equals eager, (b) no synchronizing call in a dispatch, (c) one fused
@@ -1170,13 +1378,7 @@ def phase_chunk_graphs(dev, errs: dict, floor: float) -> dict:
     from cv_monoslam_tpu_torch.io import fixtures
     from cv_monoslam_tpu_torch.ops import control
 
-    rng = np.random.default_rng(9)
-    for case in ("free", "dup", "evict"):
-        check_scan("store_slots", store_inputs(case, rng, dev),
-                   f"seeded {case}", errs)
-    for k in (48, 768, 77):
-        check_scan("gftt_greedy_nms", greedy_inputs(k, rng, dev),
-                   f"seeded K={k}", errs, min_dist2=100.0)
+    seeded_scan_checks(dev, errs)
 
     out = {}
     scans_all = {"store_slots": [], "gftt_greedy_nms": []}
@@ -1257,7 +1459,7 @@ def phase_chunk_graphs(dev, errs: dict, floor: float) -> dict:
             and runs.get("config1", {}).get("gftt_greedy_nms")):
         raise AssertionError(f"recurrence inputs captured: "
                              f"{out['captured']}")
-    out["scan_times"] = scan_times(dev, floor, runs)
+    out["scan_times"] = scan_times(dev, floor, runs, baseline)
     return out
 
 
@@ -2586,6 +2788,11 @@ def main() -> int:
                     help="after the smoke, profile a chunk")
     ap.add_argument("--config", type=int, choices=(1, 3, 4), default=1,
                     help="the configuration --profile looks at")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="another checkout of the port (e.g. the parent "
+                         "commit's): phase 3b times its two recurrence "
+                         "kernels and this tree's in turns on the same "
+                         "inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2608,7 +2815,9 @@ def main() -> int:
     run(phase_build)
     errs = run(phase_kernel_checks, dev)
     times = run(phase_kernel_times, dev)
-    gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"])
+    baseline = load_baseline(args.baseline) if args.baseline else None
+    gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"],
+             baseline)
     sl = run(phase_slice, dev, errs)
     c3 = run(phase_config3, dev, errs)
     rd = run(phase_redirect, dev)
@@ -2685,11 +2894,11 @@ def main() -> int:
         "store_slots": dict(
             replaces="cv_monoslam_tpu/filter/lifecycle.py:136-165 (a "
                      "lax.scan of lax.cond, no Pallas kernel)",
-            times=gr["scan_times"]["store_slots"]),
+            times=gr["scan_times"]["store_slots"], suffix="heavy"),
         "gftt_greedy_nms": dict(
             replaces="cv_monoslam_tpu/frontend/detect.py:91-128 (a "
                      "blocked lax.scan, no Pallas kernel)",
-            times=gr["scan_times"]["gftt_greedy_nms_k768"]),
+            times=gr["scan_times"]["gftt_greedy_nms_k768"], suffix="k48"),
     }
     for name, mt in scan_meta.items():
         t = mt["times"]
@@ -2703,15 +2912,16 @@ def main() -> int:
                  max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
                  bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                  library_ms=None, host_ms=t["host_ms"], shape=t["shape"],
-                 launch_floor_ms=times["launch_floor_ms"])
-        if name == "store_slots":
-            th = gr["scan_times"]["store_slots_heavy"]
-            k.update(ms_heavy=th["ms"], plain_ms_heavy=th["plain_ms"],
-                     bound_ms_heavy=th["bound_ms"], shape_heavy=th["shape"])
-        if name == "gftt_greedy_nms":
-            t48 = gr["scan_times"]["gftt_greedy_nms_k48"]
-            k.update(ms_k48=t48["ms"], plain_ms_k48=t48["plain_ms"],
-                     bound_ms_k48=t48["bound_ms"])
+                 launch_floor_ms=times["launch_floor_ms"],
+                 steps=t["steps"], us_per_step=t["us_per_step"],
+                 ms_runs=t["ms_runs"], baseline_ms=t["baseline_ms"],
+                 alt_ms=t["alt_ms"])
+        other = ("store_slots_heavy" if name == "store_slots"
+                 else "gftt_greedy_nms_k48")
+        to, sfx = gr["scan_times"][other], mt["suffix"]
+        k.update({f"{key}_{sfx}": to[key] for key in (
+            "ms", "plain_ms", "bound_ms", "shape", "steps", "us_per_step",
+            "ms_runs", "baseline_ms", "alt_ms")})
         kernels.append(k)
     for name in ("config1", "config3", "config4"):
         g = gr[name]

@@ -53,7 +53,7 @@ _SIGNATURES = {
 }
 _SCAN_SIGNATURES = {
     "cvms_store_slots": [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 7,
-    "cvms_gftt_greedy_nms": [_P, _P, _I, ctypes.c_float] + [_P] * 4,
+    "cvms_gftt_greedy_nms": [_P, _P, _I, ctypes.c_float] + [_P] * 6,
 }
 
 
@@ -590,7 +590,8 @@ def store_slots(mask: torch.Tensor, lid: torch.Tensor, valid: torch.Tensor,
     not stored; src (S,) int32, the record that wrote each slot last, -1
     where none; the new valid, stamp and seq). On CUDA tensors one launch
     of ``csrc/scan_kernels.cu::store_slots_kernel``, counted on the device;
-    on CPU tensors :func:`store_slots_ref`."""
+    on CPU tensors :func:`store_slots_ref`. The kernel walks only the
+    stored records, one warp minimum of a priority key each."""
     m, s = mask.shape[0], valid.shape[0]
     if (lid.shape != (m,) or tlid.shape != (s,) or stamp.shape != (s,)
             or seq.dim() != 0):
@@ -623,8 +624,30 @@ def store_slots(mask: torch.Tensor, lid: torch.Tensor, valid: torch.Tensor,
     return slot, src, valid_out, stamp_out, seq_out
 
 
-#: corners the greedy kernel's shared memory holds (12 bytes each in 48 KB)
+#: corners the greedy kernel takes (the JAX function takes any K); above
+#: GREEDY_SMEM_MAX_K its clash bitmask stays in a scratch tensor in L2
 GREEDY_MAX_K = 4096
+#: the largest K whose clash bitmask (nw * (32 nw + 4) words, nw = ceil(K /
+#: 32)) a block holds in shared memory: 226,464 bytes at nw = 42
+#: (``scan_kernels.cu``, ``kMaskSmemWords``)
+GREEDY_SMEM_MAX_K = 1344
+#: up to this K one block does all of the greedy pass, the bitmask in its
+#: shared memory; above it a grid builds the bitmask (a warp per 32 x 32
+#: task) and its last block resolves it: ``chip_smoke.py --baseline``
+#: times both routes at K = 96 ... 384, where they cross
+GREEDY_ONE_BLOCK_MAX_K = 192
+
+
+def _greedy_arrivals(dev) -> torch.Tensor:
+    """The (1,) int32 counter the blocks of a greedy grid launch arrive at;
+    the last one resets it to 0. One counter serves every such launch on
+    the device, so they must be stream-ordered: the port makes them on
+    the current stream of the thread that drives the device, and a
+    captured graph's replays on the stream that replays it. Two grid
+    launches running at once on two streams would corrupt the count."""
+    dev = torch.device(dev)
+    return control.cached(("greedy_arrivals", dev), lambda: torch.zeros(
+        1, dtype=torch.int32, device=dev))
 
 
 def gftt_greedy_nms_ref(pix: torch.Tensor, cand: torch.Tensor,
@@ -651,7 +674,8 @@ def gftt_greedy_nms(pix: torch.Tensor, cand: torch.Tensor,
     pix (K, 2) float32, cand (K,) bool. Returns (kept (K,) bool, raw_rank
     (K,) int32). On CUDA tensors one launch of
     ``csrc/scan_kernels.cu::gftt_greedy_nms_kernel``, counted on the
-    device; on CPU tensors :func:`gftt_greedy_nms_ref`."""
+    device (a clash bitmask of the pairs, then a chain of ceil(K / 32)
+    word-steps in one warp); on CPU tensors :func:`gftt_greedy_nms_ref`."""
     k = cand.shape[0]
     if pix.shape != (k, 2) or cand.dim() != 1:
         raise ValueError(f"gftt_greedy_nms: shapes {tuple(pix.shape)}, "
@@ -669,9 +693,16 @@ def gftt_greedy_nms(pix: torch.Tensor, cand: torch.Tensor,
                             f"{dev}, got {t.dtype} on {t.device}")
     kept = torch.empty(k, dtype=torch.bool, device=dev)
     raw_rank = torch.empty(k, dtype=torch.int32, device=dev)
+    scratch = None
+    if k > GREEDY_ONE_BLOCK_MAX_K:
+        nw = (k + 31) // 32
+        scratch = torch.empty(nw * (32 * nw + 4), dtype=torch.int32,
+                              device=dev)
     _launch("gftt_greedy_nms", "cvms_gftt_greedy_nms", dev, pix.data_ptr(),
             cand.data_ptr(), k, float(min_dist2), kept.data_ptr(),
             raw_rank.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            _greedy_arrivals(dev).data_ptr(),
             _device_counter(dev, "gftt_greedy_nms").data_ptr(),
             lib="scan_kernels")
     return kept, raw_rank
