@@ -100,7 +100,21 @@ non-zero and prints no result):
    numbers, not gated on); the fused kernel once per tracked frame at M =
    16 in each run; the kernels against their plain versions on three
    captured frames. Prints frames/s of both runs and the wall time of every
-   ``refine_window`` / ``optimize_graph`` call;
+   ``refine_window`` / ``optimize_graph`` call. On the card a window solve
+   is one replay of a CUDA graph captured at the backend's first solve
+   (``backend/session.py``): (c) the captured stream replayed by the graph
+   route and by the eager route (the private switch ``_graphs``): every
+   refinement dict and the keyframe poses after every solve equal exactly
+   (a differing float is named), one event wait per solve, staging +
+   replay under ``torch.cuda.set_sync_debug_mode("error")`` after the
+   capture; capture seconds, the backend pool's reserve and each route's
+   ms per ``refine_window`` / ``optimize_graph`` call printed; (d) singular
+   systems: ``ba_solve`` and ``pose_graph_solve`` undamped on a window with
+   a filled but unobserved landmark slot and a graph with a node no edge
+   touches give non-finite values without raising, and ``refine_window``
+   / ``optimize_graph`` with their solvers made singular so report
+   ``applied`` False and keep every keyframe pose (at gate 0, where the
+   same window unwrapped applies);
 9. the command line: ``python3 -m cv_monoslam_tpu_torch run`` as a
    subprocess with no ``--device`` (it must pick the card), with recorder,
    watchdog, backend and checkpoints on an 8-frame synthetic sequence, a
@@ -116,8 +130,10 @@ non-zero and prints no result):
    ``|R^T R - A| / |A|`` <= 1e-5 and <= 4x the library's, forward error
    against the float64 factor <= 4x the library's, device time per
    factorization beside ``cholesky_ex``'s; (c) ``ba_solve_sharded`` on the
-   config-5 problem (W = 8, L = 32768, 4 iterations, float64) against
-   ``ba_solve``, poses and landmarks to 1e-9, ms per iteration of both;
+   config-5 problem (W = 8, L = 32768, 4 iterations, float64; its
+   iterations one captured graph under NCCL) against ``ba_solve``, poses
+   and landmarks to 1e-9, and ``ba_solve`` captured as one graph against
+   its eager route bit for bit; ms per iteration of all three;
    (d) the landmark-layout step on 8 frames of config 1, bit for bit the
    single-device step, with the fused kernel launched by the sharded path;
    (e) the same 8 frames on four spawned ranks sharing the card through
@@ -1272,20 +1288,20 @@ def dispatch_census(sess, chunk: int) -> Tuple[int, int]:
     return counts[0], counts[1]
 
 
+def pool_reserved(pool) -> int:
+    """Bytes the card's segments of the graph pool ``pool`` hold."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def pool_footprint(sess) -> dict:
     """Bytes the card holds for the session's graphs, read after their
     captures: reserved by the graph pool they share and by the pool of
     their conditional bodies (segments of ``torch.cuda.memory_snapshot()``
     by pool id), and ``memory_reserved()`` of the whole process."""
-    pools = {"graph_pool": tuple(sess._pool),
-             "body_pool": tuple(sess._body_pool.id)}
-    out = dict.fromkeys(pools, 0)
-    for seg in torch.cuda.memory_snapshot():
-        for name, pid in pools.items():
-            if tuple(seg["segment_pool_id"]) == pid:
-                out[name] += seg["total_size"]
-    out["memory_reserved"] = torch.cuda.memory_reserved()
-    return out
+    return dict(graph_pool=pool_reserved(sess._pool),
+                body_pool=pool_reserved(sess._body_pool.id),
+                memory_reserved=torch.cuda.memory_reserved())
 
 
 def routes_fps(sess, start, chunk: int, n_chunks: int) -> dict:
@@ -1748,6 +1764,153 @@ def backends_differ(a, b) -> list:
     return diffs
 
 
+def replay_route(calls, cfg, dev, graphs: bool) -> dict:
+    """(c) The captured telemetry replayed through a ``BackendSession`` by
+    one route (``_graphs``): the backend, its refinement dicts, the
+    keyframe poses after every solve, each solve's wall ms (host clock,
+    synchronized at both ends) and event waits. On the graph route every
+    call after the capture stages and replays under
+    ``set_sync_debug_mode("error")``."""
+    from cv_monoslam_tpu_torch.backend.replay import replay
+    from cv_monoslam_tpu_torch.backend.session import BackendSession
+
+    poses_after, waits = [], [0]
+    ms = {"refine_window": [], "optimize_graph": []}
+    real = {name: getattr(BackendSession, name)
+            for name in (*ms, "_dispatch_window")}
+    real_wait = torch.cuda.Event.synchronize
+
+    def timed(name):
+        def call(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](self, *a, **kw)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            poses_after.append(np.stack([k.pose for k in self.keyframes]))
+            return out
+        return call
+
+    def dispatch(self, arrays):
+        if not (graphs and self._window_graphs):    # a capture syncs
+            return real["_dispatch_window"](self, arrays)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real["_dispatch_window"](self, arrays)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def wait(event):
+        waits[0] += 1
+        return real_wait(event)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(BackendSession, "_graphs", graphs))
+        stack.enter_context(patched(BackendSession, "_dispatch_window",
+                                    dispatch))
+        stack.enter_context(patched(torch.cuda.Event, "synchronize", wait))
+        for name in ms:
+            stack.enter_context(patched(BackendSession, name, timed(name)))
+        be, refs = replay(calls, cfg, device=dev)
+    return dict(backend=be, refinements=refs, poses_after=poses_after,
+                ms=ms, event_waits=waits[0])
+
+
+def refinements_differ(a: list, b: list) -> list:
+    """Where two lists of refinement dicts differ at all (exact, NaN equal
+    to NaN), by call and field."""
+    if len(a) != len(b):
+        return [f"{len(a)} / {len(b)} solves"]
+    diffs = []
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        if sorted(ra) != sorted(rb):
+            diffs.append(f"solve {i}: fields {sorted(ra)} / {sorted(rb)}")
+            continue
+        for key in ra:
+            x, y = np.asarray(ra[key]), np.asarray(rb[key])
+            same = (np.array_equal(x, y, equal_nan=True)
+                    if x.dtype.kind == "f" else np.array_equal(x, y))
+            if not same:
+                d = (f" (max |diff| "
+                     f"{float(np.nanmax(np.abs(x - y))):.3e})"
+                     if x.dtype.kind == "f" else "")
+                diffs.append(f"solve {i}: {key}{d}")
+    return diffs
+
+
+def ms_stats(v: list) -> dict:
+    return (dict(calls=len(v), mean=float(np.mean(v)),
+                 median=float(np.median(v)), first=v[0], max=max(v),
+                 total=float(sum(v))) if v else dict(calls=0))
+
+
+def singular_checks(live, cfg, dev) -> dict:
+    """(d) Singular systems on the card: ``ba_solve`` on a window with its
+    last landmark slot filled but unobserved and ``pose_graph_solve`` with a
+    node no edge touches, both undamped, must give non-finite results, not
+    raise; ``refine_window`` / ``optimize_graph`` on the live run's
+    keyframes with their solvers made singular in the same way must report
+    ``applied`` False and keep every keyframe pose (gate 0, where the
+    unwrapped window solve applies)."""
+    import copy
+    import dataclasses
+
+    from cv_monoslam_tpu_torch.backend import ba, pose_graph
+    from cv_monoslam_tpu_torch.backend import session as sess_mod
+
+    def last_set(mask):
+        return torch.cat([mask[:-1], torch.ones_like(mask[-1:])])
+
+    def ba_singular(prob, cfg_, **kw):
+        prob = dataclasses.replace(prob, lm_mask=last_set(prob.lm_mask))
+        return ba.ba_solve(prob, cfg_, damping=0.0, **kw)
+
+    def graph_singular(g, **kw):
+        g = dataclasses.replace(g, node_mask=last_set(g.node_mask))
+        return pose_graph.pose_graph_solve(g, damping=0.0, **kw)
+
+    gate0 = dataclasses.replace(cfg, ba_apply_gate=0.0)
+
+    def backend():
+        be = sess_mod.BackendSession(gate0, max_lms=96, device=dev)
+        be.keyframes = copy.deepcopy(live.keyframes)
+        return be
+
+    res, problems = {}, []
+    plain = backend()
+    res["plain_applied"] = plain.refine_window()["applied"]
+    with patched(sess_mod, "ba_solve", ba_singular), \
+            patched(sess_mod, "pose_graph_solve", graph_singular):
+        prob = plain.window_problem()
+        poses, lms, costs = sess_mod.ba_solve(prob, gate0)
+        g = plain.graph()
+        nodes, gcosts = sess_mod.pose_graph_solve(g)
+        res["ba_solve_finite"] = bool(torch.isfinite(poses).all())
+        res["pose_graph_solve_finite"] = bool(torch.isfinite(nodes).all())
+        for name in ("refine_window", "optimize_graph"):
+            be = backend()
+            before = np.stack([k.pose for k in be.keyframes])
+            out = getattr(be, name)()
+            kept = np.array_equal(before,
+                                  np.stack([k.pose for k in be.keyframes]))
+            res[name] = dict(
+                finite=bool(np.isfinite(out["poses" if name ==
+                                            "refine_window" else
+                                            "nodes"]).all()),
+                applied=out.get("applied"), poses_kept=kept,
+                graph_route=bool(be._window_graphs))
+            if not kept or out.get("applied") or res[name]["finite"]:
+                problems.append(f"{name} on a singular system: {res[name]}")
+    if res["ba_solve_finite"] or res["pose_graph_solve_finite"]:
+        problems.append("a singular solve gave finite values")
+    if res["plain_applied"] is not True:
+        problems.append("the unwrapped window solve did not apply at gate 0")
+    log("[config4] (d) singular systems " + json.dumps(res))
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return res
+
+
 def phase_config4(dev, errs: dict, smi: str) -> dict:
     """The keyframe backend at ``bench.py``'s config-4 width: capture +
     replay, then a live backend, which must equal the replay exactly."""
@@ -1793,6 +1956,43 @@ def phase_config4(dev, errs: dict, smi: str) -> dict:
     if live.device.type != "cuda":
         raise AssertionError(f"the live backend ran on {live.device}")
 
+    # (c) the replay by the graph route and by the eager route
+    routes = {name: replay_route(cap.calls, cfg, dev, name == "graph")
+              for name in ("graph", "eager")}
+    rg, re_ = routes["graph"], routes["eager"]
+    route_diffs = refinements_differ(rg["refinements"], re_["refinements"])
+    if len(rg["poses_after"]) != len(re_["poses_after"]) or any(
+            not np.array_equal(a, b)
+            for a, b in zip(rg["poses_after"], re_["poses_after"])):
+        route_diffs.append("keyframe poses after a solve")
+    be_graph = rg["backend"]
+    backend_graphs = dict(
+        capture_s=[round(v, 4) for v in be_graph.capture_s.values()],
+        graphs=len(be_graph._window_graphs),
+        pool_reserved_mib=(pool_reserved(be_graph._pool) / 2**20
+                           if be_graph._pool is not None else 0.0),
+        event_waits=dict(graph=rg["event_waits"],
+                         eager=re_["event_waits"]),
+        solves=len(rg["refinements"]),
+        equal=not route_diffs, differ=route_diffs,
+        ms={name: {k: ms_stats(v) for k, v in r["ms"].items()}
+            for name, r in routes.items()})
+    log("[config4] (c) backend graph vs eager " + json.dumps(backend_graphs))
+    for name, r in routes.items():
+        for solver, v in r["ms"].items():
+            if v:
+                log(f"[config4] (c) {name} route {solver} [{smi}]: "
+                    f"{len(v)} calls, mean {np.mean(v):.3f} ms, median "
+                    f"{np.median(v):.3f} ms, first {v[0]:.3f} ms, max "
+                    f"{max(v):.3f} ms, total {sum(v):.1f} ms")
+    log(f"[config4] (c) graph route: capture {backend_graphs['capture_s']} "
+        f"s, pool {backend_graphs['pool_reserved_mib']:.1f} MiB reserved; "
+        f"staging + replay under set_sync_debug_mode('error') on "
+        f"{len(rg['ms']['refine_window']) - 1} calls; event waits "
+        f"{rg['event_waits']} for {len(rg['refinements'])} solves; graph "
+        f"== eager: {not route_diffs} {route_diffs if route_diffs else ''}")
+    singular = singular_checks(live, cfg, dev)
+
     recs = sb.records
     summary = live.summary(sb.refinements)
     res = dict(
@@ -1817,6 +2017,8 @@ def phase_config4(dev, errs: dict, smi: str) -> dict:
         solver_ms_first={k: (v[0] if v else None)
                          for k, v in solver_ms.items()},
         solver_ms_total=float(sum(sum(v) for v in solver_ms.values())),
+        live_capture_s=list(live.capture_s.values()),
+        backend_graphs=backend_graphs, singular=singular,
         launches=launches(counts_b),
         launches_capture_run=launches(counts_a),
         jax_cpu_float32=CONFIG4_JAX_CPU)
@@ -1859,6 +2061,13 @@ def phase_config4(dev, errs: dict, smi: str) -> dict:
     if len(sb.refinements) != len(refinements):
         problems.append("live and replayed runs solved a different number "
                         "of times")
+    problems += [f"backend graph route != eager route: {d}"
+                 for d in route_diffs]
+    if not live._window_graphs or len(be_graph._window_graphs) != 1:
+        problems.append("the window solves did not run as one graph")
+    if rg["event_waits"] != len(rg["refinements"]):
+        problems.append(f"{rg['event_waits']} event waits for "
+                        f"{len(rg['refinements'])} solves")
     if summary["keyframes"] < 15:
         problems.append(f"{summary['keyframes']} keyframes < 15")
     if summary["loop_edges"] < 1:
@@ -2217,9 +2426,14 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
 
 
 def md_ba(mesh, dev, smi: str) -> dict:
-    """(c) ``ba_solve_sharded`` on the config-5 problem against the port's
-    ``ba_solve`` on the card: poses to 1e-9, ms per iteration of each."""
+    """(c) ``ba_solve_sharded`` on the config-5 problem (on the NCCL mesh
+    its iterations are one captured graph) against the port's ``ba_solve``
+    on the card, eagerly and as one captured graph
+    (``control.capture_graph``, as the backend's window solves run): poses
+    to 1e-9, the two ``ba_solve`` routes bit for bit, ms per iteration of
+    each."""
     from cv_monoslam_tpu_torch.backend.ba import ba_solve
+    from cv_monoslam_tpu_torch.ops import control
     from cv_monoslam_tpu_torch.parallel.dist_ba import (ba_solve_sharded,
                                                         gather_landmarks)
 
@@ -2233,14 +2447,28 @@ def md_ba(mesh, dev, smi: str) -> dict:
         return ba_solve_sharded(prob, cfg, mesh, iters=iters)
 
     p1, l1, c1 = single()
+    t0 = time.perf_counter()
     ps, ls, cs = sharded()
+    torch.cuda.synchronize()
+    capture_sharded_s = time.perf_counter() - t0
     lms = gather_landmarks(ls, mesh)
+    t0 = time.perf_counter()
+    graph, (pg, lg, cg) = control.capture_graph(
+        lambda p: ba_solve(p, cfg, iters=iters), (prob,),
+        torch.cuda.graph_pool_handle())
+    graph.replay()
+    torch.cuda.synchronize()
+    capture_single_s = time.perf_counter() - t0
+    graph_equal = all(torch.equal(a, b) for a, b in
+                      ((pg, p1), (lg, l1), (cg, c1)))
     # host-paced: synchronized wall time, and a profiled call's busy time
     ms_single, busy_single, _ = wall_and_busy_ms(single, reps=3)
+    ms_graph, busy_graph, _ = wall_and_busy_ms(graph.replay, reps=3)
     ms_sharded, busy_sharded, _ = wall_and_busy_ms(sharded, reps=3)
-    ms_single, busy_single, ms_sharded, busy_sharded = (
-        v / iters for v in (ms_single, busy_single, ms_sharded,
-                            busy_sharded))
+    ms_single, busy_single, ms_graph, busy_graph, ms_sharded, \
+        busy_sharded = (v / iters for v in (
+            ms_single, busy_single, ms_graph, busy_graph, ms_sharded,
+            busy_sharded))
     res = dict(W=CONFIG5["W"], L=CONFIG5["L"], iters=iters,
                observed=int(prob.obs_mask.sum()),
                active_landmarks=int(prob.lm_mask.sum()),
@@ -2248,18 +2476,28 @@ def md_ba(mesh, dev, smi: str) -> dict:
                max_landmark_diff=float((lms - l1).abs().max()),
                cost_first=float(cs[0]), cost_last=float(cs[-1]),
                cost_last_single=float(c1[-1]),
+               sharded_captured=any(k != "pool" for k in mesh.graphs),
+               capture_sharded_s=capture_sharded_s,
+               capture_single_s=capture_single_s,
+               graph_equal_eager=graph_equal,
                ms_per_iter_sharded=ms_sharded, ms_per_iter_single=ms_single,
+               ms_per_iter_single_graph=ms_graph,
                busy_ms_per_iter_sharded=busy_sharded,
-               busy_ms_per_iter_single=busy_single)
+               busy_ms_per_iter_single=busy_single,
+               busy_ms_per_iter_single_graph=busy_graph)
     log("[multidevice] (c) dist_ba " + json.dumps(res))
     log(f"[multidevice] (c) [{smi}] W={res['W']} L={res['L']} float64, 1 "
-        f"rank: ba_solve_sharded {ms_sharded:.3f} ms/iteration "
-        f"({busy_sharded:.3f} device-busy), ba_solve {ms_single:.3f} "
-        f"ms/iteration ({busy_single:.3f} device-busy); max|pose diff| "
+        f"rank: ba_solve_sharded (captured under NCCL: "
+        f"{res['sharded_captured']}) {ms_sharded:.3f} ms/iteration "
+        f"({busy_sharded:.3f} device-busy), ba_solve graph route "
+        f"{ms_graph:.3f} ms/iteration ({busy_graph:.3f} device-busy), "
+        f"eager route {ms_single:.3f} ms/iteration ({busy_single:.3f} "
+        f"device-busy); graph == eager {graph_equal}; max|pose diff| "
         f"{res['max_pose_diff']:.3e}")
     close = (torch.allclose(ps, p1, rtol=1e-9, atol=1e-11)
              and torch.allclose(lms, l1, rtol=1e-9, atol=1e-11))
-    if not (close and bool(torch.isfinite(cs).all())
+    if not (close and graph_equal and res["sharded_captured"]
+            and bool(torch.isfinite(cs).all())
             and res["cost_last"] < res["cost_first"]):
         raise AssertionError("dist_ba checks failed")
     return res
@@ -2935,6 +3173,11 @@ def main() -> int:
     log(f"[config3] M=576 D=3460, bench3_grid, float32: {c3['fps']:.2f} "
         f"frames/s over {c3['frames']} frames; ATE {c3['ate_m']:.5f} m; peak "
         f"matched {c3['peak_matched']}")
+    bg = c4["backend_graphs"]["ms"]
+    log(f"[config4] backend: refine_window median "
+        f"{bg['graph']['refine_window']['median']:.3f} ms by the graph "
+        f"route, {bg['eager']['refine_window']['median']:.3f} ms eager; "
+        f"graph == eager {c4['backend_graphs']['equal']}")
     log(f"[config4] M=16, bench4_lap, float32: {c4['fps_capture']:.2f} "
         f"frames/s with capture, {c4['fps_live']:.2f} with the live backend; "
         f"ATE filter {c4['ate_filter']:.4f} m -> refined "
@@ -2943,8 +3186,9 @@ def main() -> int:
     log(f"[multidevice] config 3 through dist_chol: {md['b']['fps']:.2f} "
         f"frames/s; dist_chol {md['a']['ms']:.3f} ms vs cholesky_ex "
         f"{md['a']['library_ms']:.3f} ms at n={md['a']['n']}; BA config 5 "
-        f"{md['c']['ms_per_iter_sharded']:.3f} ms/iteration sharded, "
-        f"{md['c']['ms_per_iter_single']:.3f} single")
+        f"{md['c']['ms_per_iter_sharded']:.3f} ms/iteration sharded "
+        f"(captured), {md['c']['ms_per_iter_single_graph']:.3f} single by "
+        f"a graph, {md['c']['ms_per_iter_single']:.3f} single eager")
     log(f"[reference] (R2) ATE {ref['ate_port']:.6f} m vs oracle "
         f"{ref['ate_oracle']:.6f} m; (R3) {ref['identical']}/50 identical, "
         f"Jaccard {ref['jaccard']:.3f}")

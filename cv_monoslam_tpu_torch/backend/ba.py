@@ -21,10 +21,19 @@ window of keyframes:
 
 Poses are planar (x, y, theta) with z = 0 — the reference's robot state
 (SLAM.cpp:226-231 keeps z nominally zero). The solve is small dense algebra
-(``torch.linalg.inv`` / ``solve`` / ``einsum``) on the problem's device, in
-full FP32 for float32 inputs (nothing here enables TF32: Gauss-Newton
+(``torch.linalg.inv_ex`` / ``solve_ex`` / ``einsum``) on the problem's device,
+in full FP32 for float32 inputs (nothing here enables TF32: Gauss-Newton
 amplifies the factorization error of a reduced-precision product every
 iteration).
+
+Nothing here reads the device from the host or uploads host data, so a
+solve can be captured into a CUDA graph (``session.BackendSession`` does,
+one per window shape): the constants come from ``ops.control.constant``,
+and the factorizations are the ``_ex`` forms without their error check
+(``torch.linalg.inv`` / ``solve`` read ``info`` on the host). On a
+singular system they return non-finite values, as ``jnp.linalg`` does,
+where the checked forms raise; the callers' finiteness guards keep the
+filter's poses then.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
+from ..ops import control
 from .pose_graph import _edge_jacobians
 
 
@@ -137,9 +147,8 @@ def _obs_blocks(poses, landmarks, obs, obs_mask, kf_mask, lm_mask,
     # camera plane (Z=0) and NaNs the distortion Newton solve; masked
     # entries must be zeroed with where (0 * NaN = NaN would leak through
     # a multiplicative mask)
-    safe_lms = torch.where(
-        lm_mask[:, None], landmarks,
-        torch.tensor([0.0, 0.0, 3.0], dtype=dtype, device=dev))
+    safe_lms = torch.where(lm_mask[:, None], landmarks,
+                           control.constant((0.0, 0.0, 3.0), dtype, dev))
     r, Jp, Jl = _res_jac(poses, safe_lms, obs, cfg)        # (W,L,2[,3])
     wmask = (obs_mask & kf_mask[:, None] & lm_mask[None, :]).to(dtype)
     on = wmask[..., None] > 0
@@ -159,7 +168,7 @@ def _obs_blocks(poses, landmarks, obs, obs_mask, kf_mask, lm_mask,
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     V = V + damping * eye3[None]
     V = torch.where(lm_mask[:, None, None], V, eye3[None])
-    Vinv = torch.linalg.inv(V)                             # (L,3,3)
+    Vinv = torch.linalg.inv_ex(V, check_errors=False)[0]  # (L,3,3)
 
     # Schur reduction over landmarks (the distributed reduce term):
     #   H_ww' -= sum_l W_wl Vinv_l W_w'l^T ; b_p -= sum_l W_wl Vinv_l b_l
@@ -224,7 +233,8 @@ def _pose_system(poses, U, Hred, bp_obs, prob: BAProblem, cfg: SlamConfig,
     bp = torch.where(kf_off[:, None], torch.zeros_like(bp), bp)
 
     Hd = H.permute(0, 2, 1, 3).reshape(3 * W, 3 * W)
-    dxp = torch.linalg.solve(Hd, bp.reshape(-1)).reshape(W, 3)
+    dxp = torch.linalg.solve_ex(Hd, bp.reshape(-1),
+                                check_errors=False)[0].reshape(W, 3)
     dxp = torch.where(prob.kf_mask[:, None], dxp, torch.zeros_like(dxp))
     cost_odo = 0.5 * torch.sum(res_o * res_o * iw_o)
     return dxp, cost_odo
@@ -258,12 +268,15 @@ def ba_solve(prob: BAProblem, cfg: SlamConfig, *, iters: Optional[int] = None,
              prior_pose: Tuple[float, float, float] = (1e6, 1e6, 1e6)):
     """Gauss-Newton sliding-window BA. Returns (poses, landmarks, costs).
 
-    A Python loop of ``iters`` iterations; no value is read on the host."""
+    A Python loop of ``iters`` iterations (the JAX package's ``lax.scan``):
+    every operation is enqueued on the device, none reads a value back or
+    uploads one, so the loop can be captured as one CUDA graph. A singular
+    system gives non-finite poses and landmarks, not an exception."""
     iters = cfg.ba_iters if iters is None else iters
     pix_sigma = cfg.sigma_measure if pix_sigma is None else pix_sigma
     dtype, dev = prob.poses.dtype, prob.poses.device
-    odo_s = torch.tensor(odo_sigma, dtype=dtype, device=dev)
-    prior = torch.tensor(prior_pose, dtype=dtype, device=dev)
+    odo_s = control.constant(tuple(odo_sigma), dtype, dev)
+    prior = control.constant(tuple(prior_pose), dtype, dev)
 
     poses, landmarks = prob.poses, prob.landmarks
     costs = []
@@ -280,8 +293,7 @@ def reprojection_rmse(poses, landmarks, prob: BAProblem,
                       cfg: SlamConfig) -> torch.Tensor:
     safe_lms = torch.where(
         prob.lm_mask[:, None], landmarks,
-        torch.tensor([0.0, 0.0, 3.0], dtype=poses.dtype,
-                     device=poses.device))
+        control.constant((0.0, 0.0, 3.0), poses.dtype, poses.device))
     r = _residuals(poses, safe_lms, prob.obs, cfg)
     m = (prob.obs_mask & prob.kf_mask[:, None]
          & prob.lm_mask[None, :])

@@ -9,10 +9,18 @@ events (place re-identification).
 A fixed-capacity edge table with a validity mask, residuals and Jacobians of
 all edges at once, dense (3N, 3N) normal equations assembled with one-hot
 incidence products (the summation order of the JAX package, which a
-scatter-add would change), solved by ``torch.linalg.solve`` in a Python loop
-over Gauss-Newton iterations. Every tensor stays on the graph's device; the
-float32 products run in full FP32 (nothing here enables TF32: reduced
+scatter-add would change), solved by ``torch.linalg.solve_ex`` in a Python
+loop over Gauss-Newton iterations. Every tensor stays on the graph's device;
+the float32 products run in full FP32 (nothing here enables TF32: reduced
 precision destabilizes the normal-equation solve).
+
+The loop reads nothing back and uploads nothing: ``solve_ex`` without its
+error check does not synchronize, and on a singular system it returns
+non-finite values as ``jnp.linalg.solve`` does (``torch.linalg.solve``
+would raise). It stays eager on the card, unlike the window BA: the session
+sizes the edge table by its loop edges (``BackendSession.graph``), so every
+new loop edge is a new shape, and a graph captured per call would never be
+replayed (JAX's ``lax.scan`` compiles per shape too).
 """
 
 from __future__ import annotations
@@ -106,7 +114,8 @@ def _gn_step(nodes, g: PoseGraph, damping, prior_w):
     b = torch.where(off[:, None], torch.zeros_like(b), b)
 
     Hd = H.permute(0, 2, 1, 3).reshape(3 * N, 3 * N)
-    dx = torch.linalg.solve(Hd, b.reshape(-1)).reshape(N, 3)
+    dx = torch.linalg.solve_ex(Hd, b.reshape(-1),
+                               check_errors=False)[0].reshape(N, 3)
     dx = torch.where(g.node_mask[:, None], dx, torch.zeros_like(dx))
     cost = 0.5 * torch.sum(r * r * iw)
     return nodes + dx, cost

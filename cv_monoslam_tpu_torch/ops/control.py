@@ -33,7 +33,8 @@ What a gate does depends on where it runs:
 
 A captured region must make no pageable host-to-device copy either, so the
 small constants the frame needs are built once per device and dtype and
-cached (:func:`constant`, :func:`cached`).
+cached (:func:`constant`, :func:`cached`). :func:`capture_graph` captures a
+region without gates (the backend's solves) the same way.
 """
 
 from __future__ import annotations
@@ -130,6 +131,28 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     """The stream a device's captures (and the warm-ups before them) run
     on: one per device, so that per-stream library state is made once."""
     return _body_stream(device, -1)
+
+
+def capture_graph(fn: Callable, args: tuple, pool) -> tuple:
+    """``fn(*args)`` captured as one CUDA graph on the device of ``args``'
+    tensors, with no conditional node: first run eagerly on the device's
+    :func:`capture_stream` (thrown away; library handles and workspaces are
+    per stream), then captured there into the memory pool ``pool``.
+    Returns ``(graph, out)``: ``graph.replay()`` reruns ``fn`` on the
+    current stream on whatever ``args``' tensors hold then, and ``out``
+    (what the capture returned) holds the latest replay's results. A
+    failure raises; nothing falls back to running eagerly."""
+    dev = leaves(args)[0].device
+    side = capture_stream(dev)
+    main = torch.cuda.current_stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        fn(*args)
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=side):
+        out = fn(*args)
+    return graph, out
 
 
 def _check(err: int, what: str) -> None:

@@ -15,16 +15,26 @@ Per Gauss-Newton iteration:
       landmark back-substitution                  (``back_substitute``)
 
 The payload is (9W + 9W^2 + 3W + 1) elements per iteration whatever L is.
+
+Nothing in an iteration reads the device from the host or uploads host
+data (``backend.ba``'s solves are the ``_ex`` forms, its constants cached),
+so on an NCCL mesh the iterations run as ONE captured CUDA graph per
+problem shape, collectives included (the JAX package's ``jax.jit`` of its
+``lax.scan``), kept in ``mesh.graphs`` and replayed on every call. ``gloo``
+collectives cannot be captured: a ``gloo`` mesh runs them eagerly.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..backend.ba import BAProblem, _obs_blocks, _pose_system, back_substitute
 from ..config import SlamConfig
+from ..ops import control
 from .mesh import Mesh
 
 
@@ -49,9 +59,34 @@ def ba_solve_sharded(prob: BAProblem, cfg: SlamConfig, mesh: Mesh, *,
                          f"{mesh.size} (pad the problem)")
     iters = cfg.ba_iters if iters is None else iters
     pix_sigma = cfg.sigma_measure if pix_sigma is None else pix_sigma
+    args = (cfg, mesh, iters, pix_sigma, tuple(odo_sigma), damping,
+            tuple(prior_pose))
+    if not (mesh.device.type == "cuda"
+            and dist.get_backend(mesh.group) == "nccl"):
+        return _iterations(prob, *args)
+    key = ("ba_solve_sharded", args[2:], cfg, tuple(
+        None if t is None else (tuple(t.shape), t.dtype)
+        for t in (getattr(prob, f.name) for f in dataclasses.fields(prob))))
+    if key not in mesh.graphs:
+        pool = mesh.graphs.setdefault("pool", torch.cuda.graph_pool_handle())
+        static = control.tree_map(torch.clone, prob)
+        mesh.graphs[key] = (static,) + control.capture_graph(
+            lambda p: _iterations(p, *args), (static,), pool)
+    static, graph, out = mesh.graphs[key]
+    for s, t in zip(control.leaves(static), control.leaves(prob)):
+        s.copy_(t)
+    graph.replay()
+    return tuple(t.clone() for t in out)
+
+
+def _iterations(prob: BAProblem, cfg: SlamConfig, mesh: Mesh, iters: int,
+                pix_sigma: float, odo_sigma: tuple, damping: float,
+                prior_pose: tuple):
+    """The Gauss-Newton iterations of :func:`ba_solve_sharded`."""
+    W, L = prob.obs.shape[:2]
     dtype, dev = prob.poses.dtype, prob.poses.device
-    odo_s = torch.tensor(odo_sigma, dtype=dtype, device=dev)
-    prior = torch.tensor(prior_pose, dtype=dtype, device=dev)
+    odo_s = control.constant(odo_sigma, dtype, dev)
+    prior = control.constant(prior_pose, dtype, dev)
 
     lo, hi = mesh.block(L)
     lms = prob.landmarks[lo:hi]

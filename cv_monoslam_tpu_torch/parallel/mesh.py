@@ -55,6 +55,10 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
+    #: CUDA graphs captured over this mesh's group, by what they compute
+    #: (``dist_ba.ba_solve_sharded``'s iterations), and their memory pool
+    graphs: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
     def block(self, n: int) -> Tuple[int, int]:
         """This rank's contiguous block ``[lo, hi)`` of ``n`` rows (blocks

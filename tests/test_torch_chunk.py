@@ -91,9 +91,11 @@ def _device_scalar_write(index, value) -> bool:
 def no_host_reads():
     """Make every way a tensor's value reaches the host raise (bool, int,
     float and index conversion, item, tolist, cpu, numpy, a 0-d tensor
-    index, nonzero), and every upload of host data (``torch.tensor`` or
-    ``torch.as_tensor`` of host data onto a device, a host scalar written
-    into selected elements), except inside ``control.host_bool``."""
+    index, nonzero, and the ``torch.linalg`` forms that read ``info`` on
+    the host: ``solve``, ``inv``, ``cholesky``), and every upload of host
+    data (``torch.tensor`` or ``torch.as_tensor`` of host data onto a
+    device, a host scalar written into selected elements), except inside
+    ``control.host_bool``."""
     T = torch.Tensor
     saved = {}
 
@@ -119,6 +121,8 @@ def no_host_reads():
               lambda self, index, value: _zero_d_index(index)
               or _device_scalar_write(index, value))
         guard(torch, "nonzero")
+        for name in ("solve", "inv", "cholesky"):
+            guard(torch.linalg, name)
         guard(torch, "tensor", lambda *a, **kw: "device" in kw)
         guard(torch, "as_tensor", lambda data, *a, **kw: "device" in kw
               and not isinstance(data, torch.Tensor))
