@@ -121,32 +121,48 @@ non-zero and prints no result):
    second run resumed from its checkpoint, and ``info``; checks the exit
    codes, the files written and that ``info`` names the card;
 10. the multi-device paths (``cv_monoslam_tpu_torch/parallel/``) at world
-   size 1: an NCCL process group in this process and its mesh, then (b)
-   phase 5's config-3 run again with ``dist_chol_panel=64`` under
-   ``set_mesh`` (phase 5's checks, the fused kernel once per frame, and the
-   distributed factorization once per frame), (a) that factorization alone
-   on a joint matrix captured from (b) (n = 4612, padded to 4672, panel 64,
-   float32) against ``cholesky_ex`` of the same matrix: backward error
-   ``|R^T R - A| / |A|`` <= 1e-5 and <= 4x the library's, forward error
-   against the float64 factor <= 4x the library's, device time per
-   factorization beside ``cholesky_ex``'s; (c) ``ba_solve_sharded`` on the
+   size 1: an NCCL process group in this process and its mesh. On it,
+   chunks of a session and frames of ``spmd.run_frames`` run as captured
+   CUDA graphs with the collectives inside (the route the JAX package's
+   ``jax.jit`` takes). (probe) an ``all_reduce``, a ``broadcast`` and an
+   ``all_gather`` inside a ``control.if_`` body (depth 1 and 2), captured
+   and replayed with the predicate true, false and true; (b) phase 5's
+   config-3 run again with ``dist_chol_panel=64`` under ``set_mesh`` by the
+   graph route (phase 5's checks, the fused kernel once per frame, the
+   distributed factorizations and those not finite counted on the device),
+   then one window through the graph and the eager route (every discrete
+   result equal, a float difference named; the dispatch under
+   ``set_sync_debug_mode("error")``), frames/s of both on the same windows,
+   capture seconds and the pools' reserve; (a) that factorization alone on
+   the joint matrix of an eager frame of (b) (n = 4612, padded to 4672,
+   panel 64, float32), eagerly and as one captured graph (bit for bit; its
+   replay with no synchronizing call), against ``cholesky_ex`` of the same
+   matrix: backward error ``|R^T R - A| / |A|`` <= 1e-5 and <= 4x the
+   library's, forward error against the float64 factor <= 4x the
+   library's, wall and device-busy time of both routes beside
+   ``cholesky_ex``'s; (c) ``ba_solve_sharded`` on the
    config-5 problem (W = 8, L = 32768, 4 iterations, float64; its
    iterations one captured graph under NCCL) against ``ba_solve``, poses
    and landmarks to 1e-9, and ``ba_solve`` captured as one graph against
    its eager route bit for bit; ms per iteration of all three;
-   (d) the landmark-layout step on 8 frames of config 1, bit for bit the
-   single-device step, with the fused kernel launched by the sharded path;
+   (d) the landmark-layout step on 8 frames of config 1 by the graph route
+   (a second run with no synchronizing call) and the eager route, both bit
+   for bit the single-device step, with the fused kernel launched by the
+   sharded path once per frame;
    (e) the same 8 frames on four spawned ranks sharing the card through
    ``gloo`` (NCCL refuses two ranks on one card; ``gloo`` moves CUDA
-   tensors through the host), 8 slots and the fused kernel per rank, held against
+   tensors through the host, so these ranks run eagerly), 8 slots and the
+   fused kernel per rank, held against
    (d)'s single-process run: discrete fields equal, poses to 1e-5;
    (b64) a second witness to (b)'s ATE: the same frames through the
-   distributed factorization in float64 (plain vision versions: the
-   kernels take float32), 64 finite frames, ATE and 1e-3-rung count printed
-   beside (b)'s, not gated; (f) the ``shard_sqrt`` step (every Gram over
-   S's rows a per-rank row-block product summed across the mesh) on (d)'s
-   8 frames: at the one NCCL rank bit for bit the single-device step, both
-   kernels once per frame; at (e)'s four ``gloo`` ranks each frame's step
+   distributed factorization in float64 by the graph route (plain vision
+   versions: the kernels take float32), 64 finite frames, no synchronizing
+   call in a dispatch, ATE and the count of factorizations not finite
+   printed beside (b)'s, not gated; (f) the ``shard_sqrt`` step (every Gram
+   over S's rows a per-rank row-block product summed across the mesh) on
+   (d)'s 8 frames: at the one NCCL rank by both routes bit for bit the
+   single-device step, both kernels once per frame; at (e)'s four ``gloo``
+   ranks each frame's step
    from the single-device state that entered it within
    ``tests/test_torch_spmd.py``'s tolerances, the run through all frames
    with the single-device run's discrete results and the same state on
@@ -219,9 +235,6 @@ REDIRECT_JAX_CPU = dict(n_map=5, n_loop=5, stored_valid=4)
 #: config 5 of ``bench.py``: the window-BA problem of
 #: ``scripts/bench_scaling.py:64-104`` (float64)
 CONFIG5 = dict(W=8, L=32768, iters=4)
-#: phase 10 (a) factorizes the joint matrix of this call of phase 10 (b)'s
-#: distributed factorization: a frame with the map full
-KEPT_CALL = 48
 #: config 4 of ``bench.py`` (``bench_backend``)
 CONFIG4 = dict(max_landmarks=16, max_new_per_frame=4, max_detections=32,
                keyframe_every=5, ba_window=4)
@@ -1444,7 +1457,7 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
                 raise AssertionError(f"{name}: {n_syncs[0]} syncs in a "
                                      f"dispatch; {problems}")
         res["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
-                            for (k, d), v in sess.capture_s.items()}
+                            for (k, d, _), v in sess.capture_s.items()}
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         res["footprint"] = pool_footprint(sess)
         if gates[0] is not None:
@@ -2286,32 +2299,37 @@ def phase_reference(dev, smi: str) -> dict:
 
 
 @contextlib.contextmanager
-def counted_dist_chol():
-    """While active, count the calls of the distributed factorization
-    (``parallel.dist_chol.chol_rowsharded_padded``, which the filter's
-    joint update imports at each call) and those whose factor is not finite
-    (each sends its frame to the 1e-3 rung, ``update._dist_joint_chol``;
-    read on the host only at the end), and keep a copy of the matrix of
-    call :data:`KEPT_CALL`."""
+def kept_dist_chol_matrix():
+    """While active, keep a copy of the matrix of the first call of the
+    distributed factorization (``parallel.dist_chol.chol_rowsharded_padded``,
+    which the filter's joint update imports at each call). Eager only: a
+    copy made inside a capture would hold the latest replay's values."""
     from cv_monoslam_tpu_torch.parallel import dist_chol
 
-    seen = {"calls": 0, "kept": None, "finite": []}
+    kept = []
     real = dist_chol.chol_rowsharded_padded
 
-    def counted(A, mesh, panel=64):
-        seen["calls"] += 1
-        if seen["calls"] == KEPT_CALL:
-            seen["kept"] = A.clone()
-        r = real(A, mesh, panel)
-        seen["finite"].append(torch.isfinite(r).all())
-        return r
+    def keep(A, mesh, panel=64):
+        if not kept:
+            kept.append(A.clone())
+        return real(A, mesh, panel)
 
-    dist_chol.chol_rowsharded_padded = counted
+    dist_chol.chol_rowsharded_padded = keep
     try:
-        yield seen
+        yield kept
     finally:
         dist_chol.chol_rowsharded_padded = real
-        seen["not_finite"] = sum(not bool(f) for f in seen.pop("finite"))
+
+
+def no_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    synchronizing CUDA call in it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def config5_problem(dev):
@@ -2355,15 +2373,94 @@ def config5_problem(dev):
     return prob, cfg
 
 
+def md_probe(mesh) -> dict:
+    """(probe) NCCL collectives inside a conditional body: an
+    ``all_reduce``, a ``broadcast`` and an ``all_gather`` inside a
+    ``control.if_`` body (at nesting depth 1, and at depth 2 inside an
+    outer body that is always taken), warmed up on the body streams,
+    captured into one CUDA graph and replayed with the predicate true,
+    false and true again, on new operands each time. Taken, every output
+    must hold the collective's result; not taken, its sentinel. Returns the
+    outcome per depth ("captured" or the error)."""
+    from cv_monoslam_tpu_torch.ops import control
+
+    dev, n = mesh.device, 4096
+    x = torch.zeros(n, device=dev)
+    red, bc = torch.zeros(n, device=dev), torch.zeros(n, device=dev)
+    gat = torch.zeros(mesh.size * n, device=dev)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    outer = torch.ones((), dtype=torch.bool, device=dev)
+
+    def body():
+        red.copy_(2 * x)
+        mesh.all_reduce(red)
+        bc.copy_(x + 1)
+        mesh.broadcast(bc, 0)
+        gat.copy_(mesh.all_gather(3 * x))
+
+    out, body_pool = {}, torch.cuda.MemPool()
+    for depth in (1, 2):
+        def region():
+            if depth == 1:
+                control.if_(pred, body)
+            else:
+                control.if_(outer, lambda: control.if_(pred, body))
+
+        try:
+            side = control.capture_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), control.warmup():
+                region()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side), \
+                    control.capture(body_pool):
+                region()
+            wrong = []
+            for i, taken in enumerate((True, False, True)):
+                x.copy_(torch.arange(n, device=dev) * (0.5 + i))
+                for t in (red, bc, gat):
+                    t.fill_(-1.0)
+                pred.fill_(taken)
+                graph.replay()
+                torch.cuda.synchronize()
+                want = ((2 * mesh.size * x, x + 1, (3 * x).repeat(mesh.size))
+                        if taken else (-torch.ones_like(red),) * 2
+                        + (-torch.ones_like(gat),))
+                wrong += [f"{name} (taken={taken})" for name, got, w in
+                          zip(("all_reduce", "broadcast", "all_gather"),
+                              (red, bc, gat), want)
+                          if not torch.equal(got, w)]
+            out[depth] = ("captured" if not wrong
+                          else "captured, wrong values: " + ", ".join(wrong))
+        except Exception as e:           # the outcome is what is reported
+            out[depth] = f"{type(e).__name__}: {e}"
+    log(f"[multidevice] (probe) NCCL collectives in a conditional body at "
+        f"{mesh.size} rank(s): " + json.dumps(out))
+    return out
+
+
 def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
-    """(a) The distributed factorization of a captured config-3 joint
-    matrix against ``cholesky_ex`` of the same matrix, and both times."""
+    """(a) The distributed factorization of a config-3 joint matrix (kept
+    from an eager frame of (b)'s session) against ``cholesky_ex`` of the
+    same matrix, and the times of both; the factorization eagerly and as
+    one captured CUDA graph (collectives inside), bit for bit, its replay
+    under ``set_sync_debug_mode("error")``."""
+    from cv_monoslam_tpu_torch.ops import control
     from cv_monoslam_tpu_torch.parallel.dist_chol import \
         chol_rowsharded_padded
 
     A = 0.5 * (A + A.T)                  # both factorizations get this A
     n, panel = A.shape[0], 64
     r_dist = chol_rowsharded_padded(A, mesh, panel)
+    t0 = time.perf_counter()
+    graph, r_graph = control.capture_graph(
+        lambda a: chol_rowsharded_padded(a, mesh, panel), (A,),
+        torch.cuda.graph_pool_handle())
+    no_sync(graph.replay)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graph_equal = torch.equal(r_graph, r_dist)
     r_lib, info = torch.linalg.cholesky_ex(A, upper=True)
     r_64 = torch.linalg.cholesky(A.double(), upper=True)
     a_norm = float(torch.linalg.norm(A.double()))
@@ -2380,13 +2477,18 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
                forward_err=float((r_dist.double() - r_64).abs().max()),
                forward_err_library=float((r_lib.double() - r_64).abs()
                                          .max()),
-               lower_max=float(torch.tril(r_dist, -1).abs().max()))
-    # the host paces the distributed factorization (thousands of launches
-    # and 3 collectives per panel), so CUDA events around it time the host:
-    # its cost is the synchronized wall time, and its device work the busy
-    # time of a profiled call; cholesky_ex is device-paced (time_ms)
+               lower_max=float(torch.tril(r_dist, -1).abs().max()),
+               graph_equal_eager=graph_equal, capture_s=capture_s,
+               graph_replay_syncs=0)
+    # eagerly the host paces the distributed factorization (thousands of
+    # launches and 3 collectives per panel), so CUDA events around it time
+    # the host: its cost is the synchronized wall time, and its device work
+    # the busy time of a profiled call; the same for the graph's replay;
+    # cholesky_ex is device-paced (time_ms)
+    res["eager_ms"], res["eager_busy_ms"], res["eager_device_ops"] = \
+        wall_and_busy_ms(lambda: chol_rowsharded_padded(A, mesh, panel))
     res["ms"], res["device_busy_ms"], res["device_ops"] = wall_and_busy_ms(
-        lambda: chol_rowsharded_padded(A, mesh, panel))
+        graph.replay)
     sets = [(A + (1e-6 * k) * torch.eye(n, device=A.device),)
             for k in range(1, 5)]
     res["library_ms"], _ = time_ms(
@@ -2397,8 +2499,12 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
     res["bound"] = _bound(8 * n_pad * n_pad, n_pad ** 3 // 3)
     log("[multidevice] (a) dist_chol " + json.dumps(res))
     log(f"[multidevice] (a) [{smi}] n={n} (padded {n_pad}), panel {panel}, "
-        f"1 rank: {res['ms']:.3f} ms wall ({res['device_busy_ms']:.3f} ms "
-        f"device-busy, {res['device_ops']} device ops) per factorization vs "
+        f"1 rank, one captured graph (capture {capture_s:.2f} s, == eager "
+        f"{graph_equal}, replay with 0 synchronizing calls): "
+        f"{res['ms']:.3f} ms wall ({res['device_busy_ms']:.3f} ms "
+        f"device-busy, {res['device_ops']} device ops) per factorization; "
+        f"eager {res['eager_ms']:.3f} ms wall ({res['eager_busy_ms']:.3f} "
+        f"ms device-busy, {res['eager_device_ops']} device ops); "
         f"cholesky_ex {res['library_ms']:.3f} ms (wall "
         f"{res['library_wall_ms']:.3f} ms); "
         f"max|R_dist-R_lib|={res['max_abs_diff']:.3e}, "
@@ -2419,6 +2525,8 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
         problems.append(f"forward error {res['forward_err']}")
     if res["lower_max"] != 0.0 or res["library_info"] != 0:
         problems.append("not upper triangular, or the library failed")
+    if not graph_equal:
+        problems.append("the captured factorization differs from eager")
     if problems:
         raise AssertionError("dist_chol checks failed: "
                              + "; ".join(problems))
@@ -2476,7 +2584,9 @@ def md_ba(mesh, dev, smi: str) -> dict:
                max_landmark_diff=float((lms - l1).abs().max()),
                cost_first=float(cs[0]), cost_last=float(cs[-1]),
                cost_last_single=float(c1[-1]),
-               sharded_captured=any(k != "pool" for k in mesh.graphs),
+               sharded_captured=any(
+                   isinstance(k, tuple) and k[0] == "ba_solve_sharded"
+                   for k in mesh.graphs),
                capture_sharded_s=capture_sharded_s,
                capture_single_s=capture_single_s,
                graph_equal_eager=graph_equal,
@@ -2517,17 +2627,66 @@ def config1_track(dev, frames: int):
         sess._to_device(sess._prep_image(seq.get(int(track.frame_id[k]))))
         for k in range(frames)])
     return (cfg, sess.state, images, sess._odo[:frames],
-            torch.as_tensor(sess._redirect[:frames]))
+            np.asarray(sess._redirect[:frames]))
+
+
+def sharded_routes(mesh, inputs, layout) -> dict:
+    """``spmd.run_frames`` on (d)'s frames by the graph route (on the NCCL
+    mesh each frame one replay of a captured graph of the step; the first
+    call captures it, and the kernels' launches over that call are counted
+    on the device), a second time under ``set_sync_debug_mode("error")``,
+    and by the eager route (the private switch ``spmd._GRAPHS``). Returns
+    each run's (state, outputs), the counts and the first call's seconds
+    (capture and replays)."""
+    from cv_monoslam_tpu_torch.parallel import spmd
+
+    cfg, state0, images, odo, redirect = inputs
+
+    def run():
+        return spmd.run_frames(state0, images, odo, redirect, cfg, mesh,
+                               layout)
+
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    graph = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counters()
+    again = no_sync(run)
+    with patched(spmd, "_GRAPHS", False):
+        eager = run()
+    torch.cuda.synchronize()
+    return dict(graph=graph, again=again, eager=eager, counts=counts,
+                first_call_s=first_s, replay_syncs=0)
+
+
+def routes_differ(runs: dict, want: dict, poses: np.ndarray) -> list:
+    """What differs, bit for bit, between each route of
+    :func:`sharded_routes` and the single-device run (its final state's
+    arrays ``want`` and per-frame ``poses``)."""
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+
+    unequal = []
+    for route in ("graph", "again", "eager"):
+        st, outs = runs[route]
+        got = state_to_arrays(st)
+        unequal += [f"{route}: {k}" for k in want
+                    if not np.array_equal(want[k], got[k], equal_nan=True)]
+        if not np.array_equal(outs["pose"].cpu().numpy(), poses):
+            unequal.append(f"{route}: per-frame poses")
+    return unequal
 
 
 def md_landmark_step(mesh, dev) -> dict:
     """(d) The landmark-layout step on 8 frames of config 1 at world size
-    1: bit for bit the single-device step, the fused kernel launched by the
-    sharded path once per frame."""
+    1 by the graph route and by the eager route (:func:`sharded_routes`):
+    both bit for bit the single-device step, the fused kernel launched by
+    the sharded path once per frame under replay, no synchronizing call in
+    the graph route's frames."""
     from cv_monoslam_tpu_torch.convert import state_to_arrays
     from cv_monoslam_tpu_torch.filter.srukf import slam_step
     from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
-    from cv_monoslam_tpu_torch.parallel.spmd import run_frames
 
     frames = 8
     cfg, state0, images, odo, redirect = config1_track(dev, frames)
@@ -2539,22 +2698,19 @@ def md_landmark_step(mesh, dev) -> dict:
                                bool(redirect[k]), cfg)
         poses.append(out["pose"])
         after.append(dict(pose=out["pose"], x=state.x, S=state.S))
-    torch.cuda.synchronize()
-    reset_counters()
-    st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
-                          state_shardings(mesh, cfg))
-    torch.cuda.synchronize()
-    counts = read_counters()
-    want, got = state_to_arrays(state), state_to_arrays(st)
-    unequal = [k for k in want
-               if not np.array_equal(want[k], got[k], equal_nan=True)]
-    if not torch.equal(torch.stack(poses), outs["pose"]):
-        unequal.append("per-frame poses")
+    inputs = (cfg, state0, images, odo, redirect)
+    runs = sharded_routes(mesh, inputs, state_shardings(mesh, cfg))
+    counts = runs["counts"]
+    want = state_to_arrays(state)
+    unequal = routes_differ(runs, want, torch.stack(poses).cpu().numpy())
     res = dict(frames=frames - 1, unequal=unequal,
-               n_matched=outs["n_matched"].tolist(),
+               n_matched=runs["graph"][1]["n_matched"].tolist(),
                launches=launches(counts),
-               plain_normalizations=counts["plain_normalizations"])
-    log("[multidevice] (d) landmark-layout step " + json.dumps(res))
+               plain_normalizations=counts["plain_normalizations"],
+               first_call_s=runs["first_call_s"],
+               replay_syncs=runs["replay_syncs"])
+    log("[multidevice] (d) landmark-layout step, graph route == eager "
+        "route == single device " + json.dumps(res))
     problems = launch_problems(counts, frames - 1,
                                "the landmark-layout step")
     if unequal:
@@ -2570,34 +2726,31 @@ def md_landmark_step(mesh, dev) -> dict:
     # each frame's single-device step: the state entering it and its result
     res["single_steps"] = (entering, [{k: v.cpu().numpy() for k, v in
                                        a.items()} for a in after])
-    res["inputs"] = (cfg, state0, images, odo, redirect)
+    res["inputs"] = inputs
     return res
 
 
 def md_shard_sqrt(mesh, d: dict) -> dict:
     """(f) The ``shard_sqrt`` step (every Gram over S's rows a per-rank
     row-block product summed across the mesh) on (d)'s 8 frames of config
-    1 at world size 1: bit for bit the single-device step, the fused kernel
-    launched once per frame."""
-    from cv_monoslam_tpu_torch.convert import state_to_arrays
+    1 at world size 1 by the graph route and by the eager route: both bit
+    for bit the single-device step, the fused kernel launched once per
+    frame under replay, no synchronizing call in the graph route's
+    frames."""
     from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
-    from cv_monoslam_tpu_torch.parallel.spmd import run_frames
 
-    cfg, state0, images, odo, redirect = d["inputs"]
-    reset_counters()
-    st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
+    cfg = d["inputs"][0]
+    runs = sharded_routes(mesh, d["inputs"],
                           state_shardings(mesh, cfg, shard_sqrt=True))
-    torch.cuda.synchronize()
-    counts = read_counters()
-    want, got = d["single_state"], state_to_arrays(st)
-    unequal = [k for k in want
-               if not np.array_equal(want[k], got[k], equal_nan=True)]
-    if not np.array_equal(outs["pose"].cpu().numpy(), d["single"]["pose"]):
-        unequal.append("per-frame poses")
+    counts = runs["counts"]
+    unequal = routes_differ(runs, d["single_state"], d["single"]["pose"])
     res = dict(frames=d["frames"], state_dim=cfg.state_dim, unequal=unequal,
                launches=launches(counts),
-               plain_normalizations=counts["plain_normalizations"])
-    log("[multidevice] (f) shard_sqrt step, 1 rank " + json.dumps(res))
+               plain_normalizations=counts["plain_normalizations"],
+               first_call_s=runs["first_call_s"],
+               replay_syncs=runs["replay_syncs"])
+    log("[multidevice] (f) shard_sqrt step, 1 rank, graph route == eager "
+        "route == single device " + json.dumps(res))
     problems = launch_problems(counts, d["frames"], "the shard_sqrt step")
     if unequal:
         problems.append(f"differs from the single-device step in {unequal}")
@@ -2752,52 +2905,126 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
     return res
 
 
-def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
-    """(b64) A second witness to (b)'s ATE: (b)'s frames through the
-    distributed factorization in float64, with the plain vision versions
-    (the kernels take float32). Whether float64 needs the 1e-3 rung, and
-    where its ATE falls against (b)'s, tells the rung's share of the
-    float32 spread from the filter's ordinary roundoff. Checks only 64
-    finite frames: the ATE is read, not gated."""
+def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
+    """(b) Config 3 with ``dist_chol_panel=64`` under the mesh: phase 5's
+    run and limits by the graph route (each chunk one captured graph, the
+    collectives and the 1e-3 rung's conditional node inside), the
+    distributed factorizations and those not finite counted on the device;
+    then on a second session warmed up the same way one window through the
+    graph and through the eager route (:func:`graph_vs_eager`: every
+    discrete result equal, a float difference named, the graph's dispatch
+    under ``set_sync_debug_mode("error")``), frames/s of both routes on the
+    same windows from the same state (graph, eager, eager, graph), capture
+    seconds, the pools' reserve, and the matrix of one eager frame's
+    factorization for (a)."""
+    from cv_monoslam_tpu_torch.ops import control
+    from cv_monoslam_tpu_torch.parallel import dist_chol
     from cv_monoslam_tpu_torch.parallel.mesh import set_mesh
 
-    with set_mesh(mesh), counted_dist_chol() as seen:
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        dist_chol.reset_device_counts(dev)
+        b = phase_config3(dev, errs, tag="config3_dist_chol",
+                          dist_chol_panel=64)
+        counts = dist_chol.device_counts(dev)
+        b["dist_chol_calls"], b["rung1"] = (counts["calls"],
+                                            counts["not_finite"])
+        frames = b["frames"] + 16
+        log(f"[multidevice] (b) config 3 through dist_chol, graph route: "
+            f"{b['fps']:.2f} frames/s (phase 5: {c3['fps']:.2f} frames/s, "
+            f"same call) [{smi}]; {counts['calls']} distributed "
+            f"factorizations in {frames} frames (counted on the device), "
+            f"{b['rung1']} of them not finite (frames sent to the 1e-3 "
+            f"rung); ATE {b['ate_m']:.5f} m (phase 5: {c3['ate_m']:.5f} m)")
+        if counts["calls"] < frames:
+            raise AssertionError(
+                f"the distributed factorization ran {counts['calls']} "
+                f"times in {frames} frames")
+        sess, _ = config3_session(dev, 8, dist_chol_panel=64)
+        start = (sess.counter, control.tree_map(torch.clone, sess.state),
+                 sess._last_matched)
+        b["graph_vs_eager"], _ = graph_vs_eager(sess, 8,
+                                                "config3_dist_chol")
+        b["routes"] = routes_fps(sess, start, 8, 3)
+        b["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
+                          for (k, d, _), v in sess.capture_s.items()}
+        b["footprint"] = pool_footprint(sess)
+        sess._graphs = False
+        with kept_dist_chol_matrix() as kept:
+            sess.step()
+        sess._graphs = True
+    b["kept"] = kept[0]
+    fps = b["routes"]
+    log(f"[multidevice] (b) [{smi}] config 3 through dist_chol, same windows "
+        f"from the same state (graph, eager, eager, graph): frames/s graph "
+        f"{fps['graph']} eager {fps['eager']}; capture {b['capture_s']} s; "
+        f"reserved after the captures: graph pool "
+        f"{b['footprint']['graph_pool'] / 2**20:.1f} MiB, body pool "
+        f"{b['footprint']['body_pool'] / 2**20:.1f} MiB; graph == eager "
+        f"rows {b['graph_vs_eager']['rows_equal']}, state "
+        f"{b['graph_vs_eager']['state_equal']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return b
+
+
+def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
+    """(b64) A second witness to (b)'s ATE: (b)'s frames through the
+    distributed factorization in float64 by the graph route, with the
+    plain vision versions (the kernels take float32). Whether float64
+    needs the 1e-3 rung, and where its ATE falls against (b)'s, tells the
+    rung's share of the float32 spread from the filter's ordinary roundoff.
+    Checks 64 finite frames and no synchronizing call in the dispatch of
+    its last chunk; the ATE is read, not gated."""
+    from cv_monoslam_tpu_torch.parallel import dist_chol
+    from cv_monoslam_tpu_torch.parallel.mesh import set_mesh
+
+    with set_mesh(mesh):
+        dist_chol.reset_device_counts(dev)
         sess, gt_xy = config3_session(dev, 8, dist_chol_panel=64,
                                       dtype="float64", vision_backend="xla")
         n0 = len(sess.records)
         t0 = time.perf_counter()
-        sess.run(n_frames=64, chunk=8, drop_tail=True)
+        sess.run(n_frames=56, chunk=8, drop_tail=True)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        syncs = dispatch_census(sess, 8)
+        counts = dist_chol.device_counts(dev)
     recs = sess.records
-    res = dict(frames=len(recs) - n0, fps=(len(recs) - n0) / dt,
-               ate_m=sess.ate(gt_xy), dist_chol_calls=seen["calls"],
-               rung1=seen["not_finite"],
+    res = dict(frames=len(recs) - n0, fps=56 / dt, graph_route=True,
+               ate_m=sess.ate(gt_xy), dist_chol_calls=counts["calls"],
+               rung1=counts["not_finite"], dispatch_syncs=syncs[0],
                peak_matched=max(r.n_matched for r in recs),
                repairs=recs[-1].n_repairs,
                escalations=recs[-1].n_escalations,
                skipped=recs[-1].n_skipped)
     log("[multidevice] (b64) config 3 float64 " + json.dumps(res))
-    log(f"[multidevice] (b64) [{smi}] config 3 through dist_chol in float64: "
-        f"ATE {res['ate_m']:.5f} m, {res['rung1']} of {seen['calls']} "
-        f"factorizations not finite; float32 (b): ATE {b['ate_m']:.5f} m, "
-        f"{b['rung1']} of {b['dist_chol_calls']}; {res['fps']:.2f} frames/s")
-    if res["frames"] != 64 or not np.all(np.isfinite(sess.trajectory)):
-        raise AssertionError("float64 witness: not 64 finite frames")
+    log(f"[multidevice] (b64) [{smi}] config 3 through dist_chol in float64 "
+        f"by the graph route: ATE {res['ate_m']:.5f} m, {res['rung1']} of "
+        f"{res['dist_chol_calls']} factorizations not finite (counted on "
+        f"the device); float32 (b): ATE {b['ate_m']:.5f} m, {b['rung1']} "
+        f"of {b['dist_chol_calls']}; {res['fps']:.2f} frames/s; "
+        f"{syncs[0]} synchronizing calls in a dispatch")
+    if (res["frames"] != 64 or not np.all(np.isfinite(sess.trajectory))
+            or syncs[0]):
+        raise AssertionError("float64 witness: not 64 finite frames, or a "
+                             "synchronizing call in a dispatch")
     return res
 
 
 def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
     """The multi-device paths at world size 1: an NCCL process group in this
     process (``file://`` rendezvous in a temporary directory), its mesh,
-    then (b) config 3 through the distributed joint factorization, (a) that
-    factorization alone on the matrix of (b)'s call KEPT_CALL, (c) distributed
-    BA on the config-5 problem, (d) the landmark-layout step on config 1,
-    (e) the same on four spawned ranks sharing the card, (b64) (b) in
-    float64. The group is closed at the end, also on failure."""
+    then (probe) NCCL collectives inside a conditional body, (b) config 3
+    through the distributed joint factorization by the graph route and the
+    eager route, (a) that factorization alone, eagerly and as a graph, on
+    the matrix of an eager frame of (b), (c) distributed BA on the config-5
+    problem, (d) the landmark-layout step and (f) the shard_sqrt step on
+    config 1 by both routes, (e) / (f4) the same on four spawned ranks
+    sharing the card, (b64) (b) in float64. The group is closed at the end,
+    also on failure."""
     import torch.distributed as dist
     from cv_monoslam_tpu_torch.parallel import launch
-    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2806,32 +3033,22 @@ def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
             mesh = make_mesh()
             log(f"[multidevice] NCCL group: rank {mesh.rank} of "
                 f"{mesh.size} on {mesh.device}")
-            t0 = time.perf_counter()
-            with set_mesh(mesh), counted_dist_chol() as seen:
-                b = phase_config3(dev, errs, tag="config3_dist_chol",
-                                  dist_chol_panel=64)
-            b["dist_chol_calls"] = seen["calls"]
-            b["rung1"] = seen["not_finite"]
-            log(f"[multidevice] (b) config 3 through dist_chol: "
-                f"{b['fps']:.2f} frames/s (phase 5: {c3['fps']:.2f} "
-                f"frames/s, same call) [{smi}]; {seen['calls']} "
-                f"distributed factorizations in {b['frames'] + 16} frames, "
-                f"{b['rung1']} of them not finite (frames sent to the 1e-3 "
-                f"rung); ATE {b['ate_m']:.5f} m (phase 5: "
-                f"{c3['ate_m']:.5f} m); {time.perf_counter() - t0:.1f} s")
-            if seen["calls"] < b["frames"] + 16:
-                raise AssertionError(
-                    f"the distributed factorization ran {seen['calls']} "
-                    f"times in {b['frames'] + 16} frames")
-            out["b"] = b
-            for key, fn in (("a", lambda: md_chol(mesh, seen["kept"], smi)),
+            out["probe"] = md_probe(mesh)
+            if any(v != "captured" for v in out["probe"].values()):
+                raise AssertionError(f"NCCL collectives in a conditional "
+                                     f"body: {out['probe']}")
+            for key, fn in (("b", lambda: md_config3(mesh, dev, errs, c3,
+                                                     smi)),
+                            ("a", lambda: md_chol(mesh, out["b"].pop("kept"),
+                                                  smi)),
                             ("c", lambda: md_ba(mesh, dev, smi)),
                             ("d", lambda: md_landmark_step(mesh, dev)),
                             ("f", lambda: md_shard_sqrt(mesh, out["d"])),
                             ("e", lambda: md_four_ranks(out["d"], smi)),
                             ("f4", lambda: md_four_ranks_sqrt(
                                 out["d"], out["e"], smi)),
-                            ("b64", lambda: md_witness64(mesh, dev, b, smi))):
+                            ("b64", lambda: md_witness64(mesh, dev, out["b"],
+                                                         smi))):
                 t0 = time.perf_counter()
                 out[key] = fn()
                 log(f"[multidevice] ({key}) {time.perf_counter() - t0:.1f} s")
@@ -3184,7 +3401,11 @@ def main() -> int:
         f"{c4['ate_refined']:.4f} m; {c4['summary']['keyframes']} keyframes, "
         f"{c4['summary']['loop_edges']} loop edges")
     log(f"[multidevice] config 3 through dist_chol: {md['b']['fps']:.2f} "
-        f"frames/s; dist_chol {md['a']['ms']:.3f} ms vs cholesky_ex "
+        f"frames/s by the graph route; same windows graph "
+        f"{md['b']['routes']['graph']} / eager {md['b']['routes']['eager']} "
+        f"frames/s; dist_chol as a graph {md['a']['ms']:.3f} ms wall "
+        f"({md['a']['device_busy_ms']:.3f} device-busy), eager "
+        f"{md['a']['eager_ms']:.3f} ms, vs cholesky_ex "
         f"{md['a']['library_ms']:.3f} ms at n={md['a']['n']}; BA config 5 "
         f"{md['c']['ms_per_iter_sharded']:.3f} ms/iteration sharded "
         f"(captured), {md['c']['ms_per_iter_single_graph']:.3f} single by "

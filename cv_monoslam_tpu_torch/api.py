@@ -127,22 +127,6 @@ class _ChunkGraph:
     rows: torch.Tensor
 
 
-def _write_back(buf: FilterState, state: FilterState) -> None:
-    """Copy ``state`` into the static buffers ``buf`` (in a capture: the
-    chunk's last nodes). A field that shares storage with another buffer
-    is cloned first, so no copy reads a buffer already overwritten."""
-    bufs, outs = control.leaves(buf), control.leaves(state)
-    ptrs = {b.untyped_storage().data_ptr() for b in bufs}
-    outs = [o.clone() if o is not b and o.untyped_storage().data_ptr()
-            in ptrs else o for b, o in zip(bufs, outs)]
-    for b, o in zip(bufs, outs):
-        if o.shape != b.shape or o.dtype != b.dtype:
-            raise ValueError(f"state field {tuple(o.shape)} {o.dtype} does "
-                             f"not fit its buffer {tuple(b.shape)} {b.dtype}")
-        if o is not b:
-            b.copy_(o)
-
-
 @dataclasses.dataclass
 class FrameRecord:
     frame: int
@@ -407,23 +391,29 @@ class SlamSession:
 
     def _graph_route(self) -> bool:
         """Chunks run as captured graphs: on the card, in the modes the
-        graphs cover, without an ambient mesh, unless switched off."""
+        graphs cover, unless switched off. Under an ambient mesh only when
+        its collectives can be captured (NCCL; ``Mesh.captures``): a
+        ``gloo`` mesh moves tensors through the host, so its chunks run
+        eagerly."""
         cfg = self.cfg
+        mesh = AMBIENT.get()[0]
         return (self._graphs and self.device.type == "cuda"
                 and cfg.sigma_mode in ("full", "implicit")
                 and cfg.update_mode == "gram" and cfg.qr_mode == "gram"
-                and AMBIENT.get()[0] is None)
+                and (mesh is None or mesh.captures))
 
     def _chunk_fn(self, k: int, detect: bool = True):
         """``fn(state, imgs, odo) -> (state, rows)`` running k frames
         (``imgs`` the (k, H, W) window, ``odo`` its k + 1 odometry rows),
         rows the (k, row) packed telemetry. On the graph route the graph
-        of key ``(k, detect)``, captured at its first use; else the eager
-        loop. ``detect=False`` leaves the detection pipeline out."""
+        of key ``(k, detect)`` and the ambient mesh (with its layout; its
+        collectives are captured inside), captured at its first use; else
+        the eager loop. ``detect=False`` leaves the detection pipeline
+        out."""
         if not self._graph_route():
             return lambda state, imgs, odo: self._frames(state, imgs, odo,
                                                          detect)
-        key = (k, detect)
+        key = (k, detect, AMBIENT.get())
         if key not in self._chunk_steps:
             t0 = time.perf_counter()
             self._chunk_steps[key] = self._capture_chunk(k, detect)
@@ -432,7 +422,7 @@ class SlamSession:
 
         def replay(state, imgs, odo):
             if state is not self._state_buf:
-                _write_back(self._state_buf, state)
+                control.write_back(self._state_buf, state)
             g.imgs.copy_(imgs)
             g.odo.copy_(odo)
             g.graph.replay()
@@ -459,7 +449,7 @@ class SlamSession:
             self._pool = torch.cuda.graph_pool_handle()
             self._body_pool = torch.cuda.MemPool()
         elif self.state is not self._state_buf:
-            _write_back(self._state_buf, self.state)
+            control.write_back(self._state_buf, self.state)
         self.state = buf = self._state_buf
         H, W = self.cfg.camera.height, self.cfg.camera.width
         imgs = torch.zeros((k, H, W), device=dev, dtype=(
@@ -478,7 +468,7 @@ class SlamSession:
         with torch.cuda.graph(graph, pool=self._pool, stream=side), \
                 control.capture(self._body_pool):
             st, rows = self._frames(buf, imgs, odo, detect)
-            _write_back(buf, st)
+            control.write_back(buf, st)
         return _ChunkGraph(graph=graph, imgs=imgs, odo=odo, rows=rows)
 
     def _dispatch_chunk(self, k: int) -> Optional[dict]:

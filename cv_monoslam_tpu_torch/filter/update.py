@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig
-from ..ops import chol_downdate, gmw_chol, gram, tri_solve
+from ..ops import chol_downdate, control, gmw_chol, gram, tri_solve
 from ..ops.linalg import AMBIENT, chol_psd_flagged, gram_rows
 from .sigma import ut_weights
 from .state import FilterState, PredictCache, count_repairs, replace
@@ -190,22 +190,29 @@ def _update_gram_implicit(state: FilterState, cache: PredictCache,
 
 def _dist_joint_chol(Js: torch.Tensor, panel: int):
     """Row-sharded blocked Cholesky of the equilibrated joint matrix across
-    the ambient mesh (``parallel/dist_chol.py``) with a two-rung repair: a
-    clean attempt, then one 1e-3 diagonal shift (level 1). A result that is
-    still not finite is level 4, and the caller's skip fallback degrades the
-    frame to prediction-only — chol_psd_flagged's escalated rung without
-    six distributed factorizations. Each rung's test is one host read; the
+    the ambient mesh (``parallel/dist_chol.py``) with a two-rung repair, as
+    the JAX package writes it: a clean attempt, then one 1e-3 diagonal
+    shift under :func:`control.if_` when the factor is not finite (level
+    1). A result that is still not finite is level 4, and the caller's skip
+    fallback degrades the frame to prediction-only — chol_psd_flagged's
+    escalated rung without six distributed factorizations. The level is a
+    0-d int32 device tensor; captured, the rung is a conditional node with
+    its collectives inside, and eagerly its test is one host read. The
     factor is replicated, so every rank takes the same branch."""
     from ..parallel.dist_chol import chol_rowsharded_padded
 
     mesh = AMBIENT.get()[0]
     r = chol_rowsharded_padded(Js, mesh, panel)
-    if bool(torch.isfinite(r).all()):
-        return r, 0
-    shifted = Js.clone()
-    shifted.diagonal().add_(1e-3)
-    r = chol_rowsharded_padded(shifted, mesh, panel)
-    return r, (1 if bool(torch.isfinite(r).all()) else 4)
+    bad = ~torch.isfinite(r).all()
+    level = bad.to(torch.int32)
+
+    def shifted():
+        js = Js.clone()
+        js.diagonal().add_(1e-3)
+        r.copy_(chol_rowsharded_padded(js, mesh, panel))
+
+    control.if_(bad, shifted)
+    return r, level.masked_fill(~torch.isfinite(r).all(), 4)
 
 
 def _use_dist_chol(cfg: SlamConfig | None) -> bool:

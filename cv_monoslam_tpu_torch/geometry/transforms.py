@@ -123,7 +123,25 @@ def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
 
 def covariance_ellipsoid(cov3: torch.Tensor):
     """1-sigma ellipsoid axes + orientation quaternion from a 3x3 covariance
-    (SLAM.cpp:2791-2802, 2815-2948). Returns (sigma (...,3), quat (...,4))."""
-    w, v = torch.linalg.eigh(cov3)
-    sigma = torch.sqrt(torch.clamp(w, min=0.0))
-    return sigma, rotation_to_quaternion(v)
+    (SLAM.cpp:2791-2802, 2815-2948). Returns (sigma (...,3), quat (...,4)).
+
+    A covariance that is not finite gives what ``jnp.linalg.eigh`` gives
+    (it factors the symmetrized input, and returns NaN where
+    ``torch.linalg.eigh`` raises): sigma NaN; the quaternion of the
+    identity when the only non-finite entries are infinities on the
+    diagonal, else NaN. ``eigh`` runs on the identity in place of such a
+    covariance, so the finite ones keep their values."""
+    sym = (cov3 + cov3.mT) / 2
+    finite = torch.isfinite(sym).all(dim=(-2, -1))
+    diag = torch.diagonal(sym, dim1=-2, dim2=-1)
+    off = ~torch.eye(3, dtype=torch.bool, device=cov3.device)
+    inf_diag_only = (torch.isfinite(sym[..., off]).all(dim=-1)
+                     & ~torch.isnan(diag).any(dim=-1))
+    eye = torch.eye(3, dtype=cov3.dtype, device=cov3.device)
+    w, v = torch.linalg.eigh(torch.where(finite[..., None, None], cov3, eye))
+    nan = torch.full_like(w[..., :1], float("nan"))
+    sigma = torch.where(finite[..., None], torch.sqrt(torch.clamp(w, min=0.0)),
+                        nan)
+    quat = torch.where((finite | inf_diag_only)[..., None],
+                       rotation_to_quaternion(v), nan)
+    return sigma, quat

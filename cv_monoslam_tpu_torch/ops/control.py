@@ -34,7 +34,7 @@ What a gate does depends on where it runs:
 A captured region must make no pageable host-to-device copy either, so the
 small constants the frame needs are built once per device and dtype and
 cached (:func:`constant`, :func:`cached`). :func:`capture_graph` captures a
-region without gates (the backend's solves) the same way.
+region the same way (the backend's solves, the sharded frame step).
 """
 
 from __future__ import annotations
@@ -133,26 +133,47 @@ def capture_stream(device: torch.device) -> "torch.cuda.Stream":
     return _body_stream(device, -1)
 
 
-def capture_graph(fn: Callable, args: tuple, pool) -> tuple:
+def capture_graph(fn: Callable, args: tuple, pool,
+                  body_pool=None) -> tuple:
     """``fn(*args)`` captured as one CUDA graph on the device of ``args``'
-    tensors, with no conditional node: first run eagerly on the device's
-    :func:`capture_stream` (thrown away; library handles and workspaces are
-    per stream), then captured there into the memory pool ``pool``.
-    Returns ``(graph, out)``: ``graph.replay()`` reruns ``fn`` on the
-    current stream on whatever ``args``' tensors hold then, and ``out``
-    (what the capture returned) holds the latest replay's results. A
-    failure raises; nothing falls back to running eagerly."""
+    tensors: first run eagerly on the device's :func:`capture_stream` in
+    :func:`warmup` (thrown away; library handles and workspaces are per
+    stream, and every gate runs both sides on its body's stream), then
+    captured there into the memory pool ``pool``, the gates of ``fn`` as
+    conditional nodes whose bodies allocate from ``body_pool`` (needed
+    only when ``fn`` has gates). Returns ``(graph, out)``:
+    ``graph.replay()`` reruns ``fn`` on the current stream on whatever
+    ``args``' tensors hold then, and ``out`` (what the capture returned)
+    holds the latest replay's results. A failure raises; nothing falls
+    back to running eagerly."""
     dev = leaves(args)[0].device
     side = capture_stream(dev)
     main = torch.cuda.current_stream(dev)
     side.wait_stream(main)
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), warmup():
         fn(*args)
     main.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=side):
+    with torch.cuda.graph(graph, pool=pool, stream=side), capture(body_pool):
         out = fn(*args)
     return graph, out
+
+
+def write_back(buf, tree) -> None:
+    """Copy the tensors of ``tree`` into the static buffers ``buf`` of the
+    same structure (in a capture: the graph's last nodes). A tensor that
+    shares storage with another buffer is cloned first, so no copy reads a
+    buffer already overwritten."""
+    bufs, outs = leaves(buf), leaves(tree)
+    ptrs = {b.untyped_storage().data_ptr() for b in bufs}
+    outs = [o.clone() if o is not b and o.untyped_storage().data_ptr()
+            in ptrs else o for b, o in zip(bufs, outs)]
+    for b, o in zip(bufs, outs):
+        if o.shape != b.shape or o.dtype != b.dtype:
+            raise ValueError(f"state field {tuple(o.shape)} {o.dtype} does "
+                             f"not fit its buffer {tuple(b.shape)} {b.dtype}")
+        if o is not b:
+            b.copy_(o)
 
 
 def _check(err: int, what: str) -> None:

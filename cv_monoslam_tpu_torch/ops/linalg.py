@@ -137,20 +137,26 @@ def _potrf_upper(sym: torch.Tensor):
     return torch.triu(sym.T).contiguous(), info
 
 
+def chol_upper_ex(sym: torch.Tensor):
+    """``torch.linalg.cholesky_ex(sym, upper=True)`` of the symmetric
+    ``sym``, safe inside a CUDA graph capture and its conditional bodies:
+    (R row-major, info as a 0-d int32 device tensor). On CUDA, cuSOLVER's
+    potrf through :func:`_potrf_upper` (``sym`` is overwritten); nothing
+    is read back to the host."""
+    if sym.is_cuda:
+        return _potrf_upper(sym)
+    r, info = torch.linalg.cholesky_ex(sym, upper=True)
+    # row-major copy: ``upper=True`` may hand back a transposed view, and
+    # the products downstream round differently on another layout
+    return r.contiguous(), info
+
+
 def _chol_upper(g: torch.Tensor):
     """Upper Cholesky of the symmetrized ``g`` (JAX symmetrizes its input
     the same way). Returns (R, bad) with ``bad`` a 0-d bool device tensor:
     the factorization failed (``info != 0``) or is not finite. R is the
-    row-major factor as it came out, not yet NaN-filled where it failed.
-    On CUDA, cuSOLVER's potrf through :func:`_potrf_upper`."""
-    sym = 0.5 * (g + g.T)
-    if sym.is_cuda:
-        r, info = _potrf_upper(sym)
-    else:
-        r, info = torch.linalg.cholesky_ex(sym, upper=True)
-        # row-major copy: ``upper=True`` may hand back a transposed view,
-        # and the products downstream round differently on another layout
-        r = r.contiguous()
+    row-major factor as it came out, not yet NaN-filled where it failed."""
+    r, info = chol_upper_ex(0.5 * (g + g.T))
     return r, (info != 0) | ~torch.isfinite(r).all()
 
 

@@ -30,7 +30,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from ..backend.ba import BAProblem, _obs_blocks, _pose_system, back_substitute
 from ..config import SlamConfig
@@ -61,8 +60,7 @@ def ba_solve_sharded(prob: BAProblem, cfg: SlamConfig, mesh: Mesh, *,
     pix_sigma = cfg.sigma_measure if pix_sigma is None else pix_sigma
     args = (cfg, mesh, iters, pix_sigma, tuple(odo_sigma), damping,
             tuple(prior_pose))
-    if not (mesh.device.type == "cuda"
-            and dist.get_backend(mesh.group) == "nccl"):
+    if not mesh.captures:
         return _iterations(prob, *args)
     key = ("ba_solve_sharded", args[2:], cfg, tuple(
         None if t is None else (tuple(t.shape), t.dtype)

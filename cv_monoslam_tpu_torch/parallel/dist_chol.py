@@ -37,7 +37,12 @@ whole trailing square (n^3/3).
 
 Communication per panel: nb x nb (block), 2 nb x nb (factor and inverse),
 n x nb (W): about n^2 elements in all against n^3/3 operations. All control
-flow is decided from shapes and ranks on the host: no device value is read.
+flow is decided from shapes and ranks on the host: no device value is read
+and no host value is uploaded, so on an NCCL mesh the factorization can be
+captured in a CUDA graph with its collectives (the JAX package calls it
+inside ``jax.jit`` under ``set_mesh``). Each factorization of
+:func:`chol_rowsharded_padded` is counted on the device, with those whose
+factor is not finite (:func:`device_counts`).
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ import math
 
 import torch
 
-from ..ops.linalg import tri_inv_upper
+from ..ops import control
+from ..ops.linalg import chol_upper_ex, tri_inv_upper
 from .mesh import Mesh
 
 
@@ -67,7 +73,6 @@ def chol_rowsharded(A_loc: torch.Tensor, mesh: Mesh,
     c_end = min(n, -(-row1 // nb) * nb)
     A = A_loc.clone()                   # the trailing updates go in place
     R = torch.zeros_like(A)
-    nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
     for k0 in range(0, n, nb):
         k1 = k0 + nb
         owner = k0 // rows_loc
@@ -82,9 +87,8 @@ def chol_rowsharded(A_loc: torch.Tensor, mesh: Mesh,
         # (2) the owner factorizes and inverts, then broadcasts both
         rr = A.new_empty((2, nb, nb))
         if mesh.rank == owner:
-            r_kk, info = torch.linalg.cholesky_ex(0.5 * (a_kk + a_kk.T),
-                                                  upper=True)
-            r_kk = torch.where(info == 0, r_kk, nan)
+            r_kk, info = chol_upper_ex(0.5 * (a_kk + a_kk.T))
+            r_kk = r_kk.masked_fill(info != 0, float("nan"))
             rr[0] = r_kk
             # base=nb: one triangular solve against I. The recursion below
             # the base turns leaf solves into products for the TPU's
@@ -126,10 +130,43 @@ def chol_rowsharded_padded(A: torch.Tensor, mesh: Mesh,
     A_loc = A.new_zeros((hi - lo, n_pad))
     if lo < n:
         A_loc[:min(hi, n) - lo, :n] = A[lo:min(hi, n)]
-    pad = torch.arange(max(lo, n), max(hi, n), device=A.device)
-    A_loc[pad - lo, pad] = 1.0
+    p0, p1 = max(lo, n), max(hi, n)
+    A_loc[p0 - lo:p1 - lo, p0:p1].diagonal().fill_(1.0)
     R = mesh.all_gather(chol_rowsharded(A_loc, mesh, panel))
-    return R if n_pad == n else R[:n, :n].contiguous()
+    R = R if n_pad == n else R[:n, :n].contiguous()
+    _count(R)
+    return R
+
+
+def _counts(dev) -> torch.Tensor:
+    """(2,) int32 on ``dev``: factorizations, and those not finite."""
+    dev = torch.device(dev)
+    return control.cached(("dist_chol_counts", dev), lambda: torch.zeros(
+        2, dtype=torch.int32, device=dev))
+
+
+def _count(R: torch.Tensor) -> None:
+    """Add this factorization to the counters on the device (in a graph's
+    warm-up, whose results are thrown away, to a scratch pair)."""
+    counts = _counts(R.device)
+    if control.warming():
+        counts = control.cached(("dist_chol_warmup_counts", R.device),
+                                lambda: torch.zeros_like(counts))
+    counts[0:1] += 1
+    counts[1:2] += (~torch.isfinite(R).all()).to(torch.int32)
+
+
+def device_counts(dev) -> dict:
+    """Factorizations of :func:`chol_rowsharded_padded` on ``dev`` since
+    the last :func:`reset_device_counts`, and how many gave a factor that
+    is not finite (each sends a filter frame to the 1e-3 rung); one device
+    read."""
+    calls, not_finite = _counts(dev).tolist()
+    return dict(calls=calls, not_finite=not_finite)
+
+
+def reset_device_counts(dev) -> None:
+    _counts(dev).zero_()
 
 
 def _lcm(a: int, b: int) -> int:

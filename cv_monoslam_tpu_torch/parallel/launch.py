@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..filter.state import resolve_device
-from .mesh import _BACKEND, make_mesh
+from .mesh import _BACKEND, make_mesh, set_mesh
 
 
 #: seconds a collective may wait before it fails instead of hanging
@@ -200,6 +200,13 @@ def run_cases(device: torch.device,
 
         out.append(fn(*[arg(a) for a in args]))
     return out
+
+
+def ambient(fn: Callable, mesh, *args, shard_sqrt: bool = False) -> Any:
+    """``fn(*args)`` with ``mesh`` made ambient (``mesh.set_mesh``): a
+    :func:`run_cases` case of a function that reads the ambient mesh."""
+    with set_mesh(mesh, shard_sqrt=shard_sqrt):
+        return fn(*args)
 
 
 def to_device(obj: Any, device: torch.device) -> Any:

@@ -55,10 +55,20 @@ class Mesh:
     rank: int
     size: int
     device: torch.device
+    #: the process group's backend: ``nccl`` or ``gloo``
+    backend: str = "gloo"
     #: CUDA graphs captured over this mesh's group, by what they compute
-    #: (``dist_ba.ba_solve_sharded``'s iterations), and their memory pool
+    #: (``dist_ba.ba_solve_sharded``'s iterations, ``spmd.run_frames``'
+    #: frame steps), and their memory pools
     graphs: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+
+    @property
+    def captures(self) -> bool:
+        """Work over this mesh runs as captured CUDA graphs, collectives
+        included: NCCL on ``cuda``. ``gloo`` collectives go through the
+        host and cannot be captured, so a ``gloo`` mesh runs eagerly."""
+        return self.device.type == "cuda" and self.backend == "nccl"
 
     def block(self, n: int) -> Tuple[int, int]:
         """This rank's contiguous block ``[lo, hi)`` of ``n`` rows (blocks
@@ -120,7 +130,7 @@ def make_mesh(n_devices: Optional[int] = None, device=None
                            f"ranks, wanted {n}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(group, dist.get_rank(group), n, dev)
+    return Mesh(group, dist.get_rank(group), n, dev, backend)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ import dataclasses
 import math
 from functools import partial
 
+import numpy as np
 import torch
 
 from ..config import SlamConfig
@@ -43,7 +44,13 @@ from ..filter.measurement import apply_prediction, prediction_rows
 from ..filter.srukf import slam_step, step_with
 from ..filter.state import FilterState, LandmarkTable, replace
 from ..frontend.matching import accept_matches, association_rows
+from ..ops import control
 from .mesh import Layout, Mesh, set_mesh
+
+
+#: private switch: False sends every frame of :func:`run_frames` to the
+#: eager route (the chip smoke compares the two routes with it)
+_GRAPHS = True
 
 
 def sharded_slam_step(state: FilterState, image: torch.Tensor,
@@ -63,23 +70,75 @@ def sharded_slam_step(state: FilterState, image: torch.Tensor,
 
 
 def run_frames(state: FilterState, images: torch.Tensor, odo: torch.Tensor,
-               redirect: torch.Tensor, cfg: SlamConfig, mesh: Mesh,
-               layout: Layout):
+               redirect, cfg: SlamConfig, mesh: Mesh, layout: Layout):
     """Frames 1 .. T - 1 of a track through :func:`sharded_slam_step`, as
     ``SlamSession.step`` drives ``slam_step`` on one device: ``images``
     (T, H, W) in the filter dtype, ``odo`` (T, 3) odometry poses,
-    ``redirect`` (T,) flags; ``state`` has seen frame 0. Returns (state,
-    the frames' pose, n_map, n_matched, lm_active, lm_matched and lm_lid
-    stacked)."""
+    ``redirect`` (T,) host flags (numpy or a CPU tensor; read once);
+    ``state`` has seen frame 0. Returns (state, the frames' pose, n_map,
+    n_matched, lm_active, lm_matched and lm_lid stacked).
+
+    On a mesh whose collectives can be captured (NCCL, ``Mesh.captures``)
+    each non-redirect frame is one replay of a CUDA graph of the step, one
+    per layout (kept in ``mesh.graphs``), captured at its first use with the
+    collectives and the filter's gates inside: the counterpart of the JAX
+    package's one ``jax.jit`` of the sharded step. Redirect frames, and
+    every frame on a ``gloo`` mesh, run eagerly."""
+    flags = np.asarray(redirect.cpu() if isinstance(redirect, torch.Tensor)
+                       else redirect, dtype=bool)
     keys = ("pose", "n_map", "n_matched", "lm_active", "lm_matched",
             "lm_lid")
     outs = {k: [] for k in keys}
+    step = (_frame_graph(state, images[0], odo[0], cfg, mesh, layout)
+            if mesh.captures and _GRAPHS else None)
     for k in range(1, images.shape[0]):
-        state, out = sharded_slam_step(state, images[k], odo[k - 1], odo[k],
-                                       bool(redirect[k]), cfg, mesh, layout)
+        if step is None or flags[k]:
+            state, out = sharded_slam_step(state, images[k], odo[k - 1],
+                                           odo[k], bool(flags[k]), cfg, mesh,
+                                           layout)
+        else:
+            state, out = step(state, images[k], odo[k - 1], odo[k])
+            out = {key: out[key].clone() for key in keys}
         for key in keys:
             outs[key].append(out[key])
+    if step is not None:
+        state = control.tree_map(torch.clone, state)
     return state, {k: torch.stack(v) for k, v in outs.items()}
+
+
+def _frame_graph(state: FilterState, image: torch.Tensor, odo: torch.Tensor,
+                 cfg: SlamConfig, mesh: Mesh, layout: Layout):
+    """``step(state, image, odo_prev, odo_cur) -> (state, outputs)``: one
+    replay of the captured non-redirect :func:`sharded_slam_step` (kept in
+    ``mesh.graphs``). The inputs are copied into the graph's static
+    buffers; the state it returns IS its buffers, and the outputs hold the
+    latest replay's values."""
+    key = ("sharded_slam_step", layout, cfg, tuple(image.shape), image.dtype,
+           odo.dtype)
+    if key not in mesh.graphs:
+        pool = mesh.graphs.setdefault("pool", torch.cuda.graph_pool_handle())
+        body_pool = mesh.graphs.setdefault("body_pool", torch.cuda.MemPool())
+        static = (control.tree_map(torch.clone, state), image.clone(),
+                  odo.clone(), odo.clone())
+
+        def frame(st, im, op, oc):
+            new, out = sharded_slam_step(st, im, op, oc, False, cfg, mesh,
+                                         layout)
+            control.write_back(st, new)
+            return out
+
+        mesh.graphs[key] = (static,) + control.capture_graph(
+            frame, static, pool, body_pool)
+    static, graph, out = mesh.graphs[key]
+
+    def step(st, im, op, oc):
+        for buf, t in zip(static, (st, im, op, oc)):
+            if t is not buf:
+                control.write_back(buf, t)
+        graph.replay()
+        return static[0], out
+
+    return step
 
 
 def _predict_and_associate_sharded(state: FilterState, cache, image, cfg,

@@ -18,17 +18,15 @@ made with numpy from a seed:
   ``_finish_chunk`` against the JAX session: records and each chunk's
   detect flag, pipelined, not pipelined (a watchdog attached) and with
   ``detect_host_gate``;
-* a host-read guard: ``_dispatch_chunk`` at the config-1 and implicit
-  settings reads nothing back to the host outside ``control.host_bool``
-  and uploads nothing, so a new host read fails here before it fails a
-  capture on the card.
+* a host-read guard (``ops/host_reads.no_host_reads``): ``_dispatch_chunk``
+  at the config-1 and implicit settings reads nothing back to the host
+  outside ``control.host_bool`` and uploads nothing, so a new host read
+  fails here before it fails a capture on the card.
 
 The kernels themselves, the captured graphs and the no-sync dispatch run
 only on the card (``chip_smoke.py``, phase chunk graphs).
 """
 
-import contextlib
-import numbers
 import warnings
 
 import jax
@@ -52,6 +50,7 @@ from cv_monoslam_tpu_torch.frontend import detect as tdetect
 from cv_monoslam_tpu_torch.io import fixtures as tfix
 from cv_monoslam_tpu_torch.ops import control, vision
 from cv_monoslam_tpu_torch.ops import linalg as tla
+from cv_monoslam_tpu_torch.ops.host_reads import HostRead, no_host_reads
 from cv_monoslam_tpu_torch.utils.watchdog import Watchdog
 
 #: config 1's settings at a smaller width, float64
@@ -68,70 +67,6 @@ IMPLICIT_KW = dict(max_landmarks=48, max_new_per_frame=16, max_detections=96,
 # ---------------------------------------------------------------------------
 
 
-class HostRead(AssertionError):
-    pass
-
-
-def _zero_d_index(index) -> bool:
-    items = index if isinstance(index, tuple) else (index,)
-    return any(isinstance(i, torch.Tensor) and i.dim() == 0 for i in items)
-
-
-def _device_scalar_write(index, value) -> bool:
-    """``t[index] = number`` copies a host scalar to the device when the
-    index takes single elements or a tensor picks them."""
-    if not isinstance(value, (numbers.Number, np.generic)):
-        return False
-    items = index if isinstance(index, tuple) else (index,)
-    return any(isinstance(i, torch.Tensor) for i in items) or all(
-        isinstance(i, int) for i in items)
-
-
-@contextlib.contextmanager
-def no_host_reads():
-    """Make every way a tensor's value reaches the host raise (bool, int,
-    float and index conversion, item, tolist, cpu, numpy, a 0-d tensor
-    index, nonzero, and the ``torch.linalg`` forms that read ``info`` on
-    the host: ``solve``, ``inv``, ``cholesky``), and every upload of host
-    data (``torch.tensor`` or ``torch.as_tensor`` of host data onto a
-    device, a host scalar written into selected elements), except inside
-    ``control.host_bool``."""
-    T = torch.Tensor
-    saved = {}
-
-    def guard(owner, name, test=None):
-        real = getattr(owner, name)
-        saved[(owner, name)] = real
-
-        def wrapped(*a, **kw):
-            if control.host_read_depth == 0 and (test is None
-                                                 or test(*a, **kw)):
-                raise HostRead(f"{getattr(owner, '__name__', owner)}."
-                               f"{name} outside control.host_bool")
-            return real(*a, **kw)
-
-        setattr(owner, name, wrapped)
-
-    try:
-        for name in ("__bool__", "__int__", "__float__", "__index__",
-                     "item", "tolist", "cpu", "numpy", "nonzero"):
-            guard(T, name)
-        guard(T, "__getitem__", lambda self, index: _zero_d_index(index))
-        guard(T, "__setitem__",
-              lambda self, index, value: _zero_d_index(index)
-              or _device_scalar_write(index, value))
-        guard(torch, "nonzero")
-        for name in ("solve", "inv", "cholesky"):
-            guard(torch.linalg, name)
-        guard(torch, "tensor", lambda *a, **kw: "device" in kw)
-        guard(torch, "as_tensor", lambda data, *a, **kw: "device" in kw
-              and not isinstance(data, torch.Tensor))
-        yield
-    finally:
-        for (owner, name), real in saved.items():
-            setattr(owner, name, real)
-
-
 def test_guard_catches_host_reads_and_uploads():
     x = torch.arange(4.0)
     with no_host_reads():
@@ -140,7 +75,8 @@ def test_guard_catches_host_reads_and_uploads():
                     lambda: x[torch.tensor(1)],
                     lambda: torch.tensor([1.0], device="cpu"),
                     lambda: x.__setitem__(0, 2.0),
-                    lambda: torch.nonzero(x)):
+                    lambda: torch.nonzero(x),
+                    lambda: torch.linalg.eigh(torch.eye(3))):
             with pytest.raises(HostRead):
                 bad()
         assert control.host_bool(x.sum() > 0)
@@ -457,9 +393,36 @@ def test_tree_map_and_leaves_cover_the_filter_state():
                for a, b in zip(leaves, control.leaves(copy)))
 
 
-def test_write_back_copies_a_state_into_the_buffers():
-    from cv_monoslam_tpu_torch.api import _write_back
+@pytest.mark.parametrize("device,backend,shard_sqrt,panel,graphs", [
+    ("cuda", "nccl", False, 0, True), ("cuda", "nccl", True, 0, True),
+    ("cuda", "nccl", False, 64, True), ("cuda", "nccl", True, 64, True),
+    ("cuda", "gloo", False, 64, False), ("cuda", "gloo", True, 0, False),
+    ("cpu", "gloo", True, 64, False)])
+def test_graph_route_under_a_mesh(device, backend, shard_sqrt, panel,
+                                  graphs):
+    """``_graph_route`` with a stub mesh: an NCCL mesh on the card keeps
+    the graph route in both layouts, with the distributed factorization
+    on or off; a ``gloo`` mesh (collectives through the host, which no
+    graph can capture) and the CPU take the eager route."""
+    import types
 
+    from cv_monoslam_tpu_torch.parallel.mesh import Mesh, set_mesh
+
+    cfg = SlamConfig(**IMPLICIT_KW, dist_chol_panel=panel)
+    sess = types.SimpleNamespace(_graphs=True, cfg=cfg,
+                                 device=torch.device(device))
+    mesh = Mesh(group=None, rank=0, size=1, device=torch.device(device),
+                backend=backend)
+    assert mesh.captures == graphs
+    assert SlamSession._graph_route(sess) == (device == "cuda")
+    with set_mesh(mesh, shard_sqrt=shard_sqrt):
+        assert SlamSession._graph_route(sess) == graphs
+        sess._graphs = False
+        assert not SlamSession._graph_route(sess)
+
+
+def test_write_back_copies_a_state_into_the_buffers():
+    _write_back = control.write_back
     cfg = SlamConfig(**KW)
     buf = tstate.init_state(cfg, device="cpu")
     new = tstate.replace(control.tree_map(torch.clone, buf),

@@ -35,6 +35,7 @@ from cv_monoslam_tpu.parallel.mesh import state_shardings as j_shardings
 from cv_monoslam_tpu_torch.config import SlamConfig
 from cv_monoslam_tpu_torch.convert import state_from_arrays, state_to_arrays
 from cv_monoslam_tpu_torch.filter import update
+from cv_monoslam_tpu_torch.ops.host_reads import guarded
 from cv_monoslam_tpu_torch.parallel import launch
 from cv_monoslam_tpu_torch.parallel.dist_chol import (chol_rowsharded,
                                                       chol_rowsharded_padded)
@@ -84,6 +85,18 @@ def _jax_filter(dist_panel):
     return np.asarray(st.x), np.asarray(st.S)
 
 
+#: smallest eigenvalue of the joint-update matrices and the repair level
+#: each needs: clean, repaired by the 1e-3 shift, beyond it
+RUNGS = {1e-2: 0, -5e-4: 1, -1.0: 4}
+
+
+def _rung_matrix(low, n=300, seed=4):
+    """float64 symmetric, eigenvalues from ``low`` to 2 (n = 300 pads to
+    320: at 4 ranks 80 rows each, so panels span ranks)."""
+    q, _ = np.linalg.qr(np.random.default_rng(seed).normal(size=(n, n)))
+    return (q * np.linspace(low, 2.0, n)) @ q.T
+
+
 def _indefinite(n=200, seed=11):
     a = _spd(n, seed)
     a[0, 0] = -1.0
@@ -108,6 +121,11 @@ def ranks():
         add(("invariance", nd), nd, chol_rowsharded_padded,
             (_spd(384, seed=3), M, 64))
     add("indefinite", 4, chol_rowsharded_padded, (_indefinite(), M, 64))
+    for nd in (1, 4):
+        for low in RUNGS:
+            add(("rung", nd, low), nd, guarded,
+                (launch.ambient, update._dist_joint_chol, M, _rung_matrix(low),
+                 64))
     step = partial(sharded_slam_step, allow_detect=False)
     for panel in (0, 64):
         jcfg, state, img, (op, oc) = _filter_inputs(panel)
@@ -219,6 +237,44 @@ def test_repair_ladder_on_a_one_rank_mesh(tmp_path):
                 assert bool(torch.isfinite(r).all()) == (want < 4)
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def jax_rungs():
+    """The JAX package's ``_dist_joint_chol`` jitted under ``set_mesh`` of
+    4 of its fake devices, on each matrix of :data:`RUNGS`."""
+    from cv_monoslam_tpu.filter import update as jupdate
+
+    out = {}
+    with jax.sharding.set_mesh(j_make_mesh(4)):
+        fn = jax.jit(lambda js: jupdate._dist_joint_chol(js, 64))
+        for low in RUNGS:
+            r, level = fn(jnp.asarray(_rung_matrix(low)))
+            out[low] = (np.asarray(r), int(level))
+    return out
+
+
+@pytest.mark.parametrize("low", list(RUNGS))
+@pytest.mark.parametrize("ndev", (1, 4))
+def test_dist_joint_chol_matches_jax(ranks, jax_rungs, ndev, low):
+    """update._dist_joint_chol at 1 and 4 gloo ranks under the host-read
+    guard (no host read, no upload outside ``control.host_bool``; the rung
+    is a ``control.if_``, read once on the host here): the level a 0-d
+    device tensor equal to JAX's, the factor to 1e-9 relative of JAX's
+    (float64), every rank the same; non-finite at level 4 in both."""
+    res, index = ranks
+    jr, jlevel = jax_rungs[low]
+    assert jlevel == RUNGS[low]
+    r, level = res[0][index["rung", ndev, low]]
+    assert level.shape == () and level.dtype == np.int32
+    assert int(level) == jlevel
+    for q in range(1, ndev):
+        np.testing.assert_array_equal(res[q][index["rung", ndev, low]][0], r)
+    if jlevel == 4:
+        assert not np.isfinite(r).all() and not np.isfinite(jr).all()
+    else:
+        np.testing.assert_allclose(r, jr, rtol=1e-9,
+                                   atol=1e-9 * np.abs(jr).max())
 
 
 def test_dispatch_needs_the_panel_and_an_ambient_mesh():

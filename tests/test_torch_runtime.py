@@ -419,6 +419,105 @@ def test_landmark_display_info_matches_jax():
     np.testing.assert_allclose(got["xyz"][0, 2], 3.0, atol=0.1)
 
 
+def _nonfinite_covariances():
+    """3x3 covariances built with numpy from a seed: finite ones, and the
+    non-finite patterns (an all-NaN block, one NaN entry below, above and on
+    the diagonal, infinities on the diagonal, off it, and mixed with a
+    NaN) in one batch with finite ones between them."""
+    rng = np.random.default_rng(9)
+
+    def spd():
+        a = rng.normal(size=(3, 3))
+        return a @ a.T + 0.1 * np.eye(3)
+
+    cases = {"all_nan": np.full((3, 3), np.nan)}
+    for i, j in ((0, 0), (2, 1), (0, 2)):
+        cases[f"nan_{i}{j}"] = spd()
+        cases[f"nan_{i}{j}"][i, j] = np.nan
+    for i in range(3):
+        cases[f"inf_{i}{i}"] = spd()
+        cases[f"inf_{i}{i}"][i, i] = np.inf
+    cases["inf_00_minus_inf_11"] = spd()
+    cases["inf_00_minus_inf_11"][[0, 1], [0, 1]] = [np.inf, -np.inf]
+    cases["inf_01"] = spd()
+    cases["inf_01"][0, 1] = np.inf
+    cases["inf_00_nan_01"] = spd()
+    cases["inf_00_nan_01"][0, 0], cases["inf_00_nan_01"][0, 1] = (np.inf,
+                                                                  np.nan)
+    cases["all_inf"] = np.full((3, 3), np.inf)
+    names, mats = [], []
+    for name, c in cases.items():
+        names += [f"finite before {name}", name]
+        mats += [spd(), c]
+    return names, np.stack(mats)
+
+
+def _same_nans_and_close(got, want, what):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want),
+                                  err_msg=f"{what}: NaN positions")
+    fin = ~np.isnan(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-9, atol=1e-9,
+                               err_msg=what)
+
+
+def test_covariance_ellipsoid_nonfinite_matches_jax():
+    """On non-finite covariances ``jnp.linalg.eigh`` gives NaN where
+    ``torch.linalg.eigh`` raised: sigma NaN, the quaternion NaN, or the
+    identity's when only the diagonal holds infinities. float64, NaN
+    positions equal, finite entries to 1e-9; the finite covariances of the
+    batch keep their own eigh's bits (their eigenvectors' signs are
+    LAPACK's choice in each package, so their quaternions are compared
+    with the port's eigh alone)."""
+    import jax.numpy as jnp
+
+    from cv_monoslam_tpu.geometry import transforms as jtf
+    from cv_monoslam_tpu_torch.geometry import transforms as ttf
+
+    names, mats = _nonfinite_covariances()
+    js, jq = (np.asarray(v) for v in jtf.covariance_ellipsoid(
+        jnp.asarray(mats)))
+    ts, tq = (v.numpy() for v in ttf.covariance_ellipsoid(
+        torch.as_tensor(mats)))
+    _same_nans_and_close(ts, js, "sigma")
+    finite = np.isfinite(mats).all(axis=(1, 2))
+    _same_nans_and_close(tq[~finite], jq[~finite], "quat")
+    assert np.isnan(jq[~finite]).any() and not np.isnan(jq[~finite]).all()
+    for i in np.flatnonzero(finite):
+        w, v = torch.linalg.eigh(torch.as_tensor(mats[i]))
+        assert np.array_equal(ts[i], torch.sqrt(w).numpy()), names[i]
+        assert np.array_equal(tq[i], ttf.rotation_to_quaternion(v).numpy())
+
+
+def test_landmark_display_info_nonfinite_matches_jax():
+    """``landmark_display_info`` on a state whose sqrt factor holds NaN in
+    one slot's columns and an infinity in another's: the JAX function's
+    NaN positions and finite values (float64, 1e-9), where the port
+    raised."""
+    import jax
+    import jax.numpy as jnp
+
+    from cv_monoslam_tpu import viz as jviz
+    from cv_monoslam_tpu_torch import viz as tviz
+
+    arrays = _viz_state()
+    arrays["S"][:, 6:12] = np.nan
+    arrays["S"][14, 14] = np.inf
+    jcfg = JaxConfig(max_landmarks=4, dtype="float64")
+    template = jstate.init_state(jcfg)
+    jst = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(template),
+        [jnp.asarray(v) for v in arrays.values()])
+    want = jviz.landmark_display_info(jst, jcfg)
+    got = tviz.landmark_display_info(
+        state_from_arrays(arrays, device="cpu"), CFG)
+    assert np.isnan(want["sigma"]).any() and not np.isnan(
+        want["sigma"]).all()
+    for k in ("xyz", "cov3", "sigma"):
+        _same_nans_and_close(got[k], want[k], k)
+    finite = np.isfinite(want["cov3"]).all(axis=(1, 2))
+    _same_nans_and_close(got["quat"][~finite], want["quat"][~finite], "quat")
+
+
 def test_viz_products(tmp_path):
     pytest.importorskip("matplotlib")
     from cv_monoslam_tpu_torch import viz

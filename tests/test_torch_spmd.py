@@ -41,6 +41,7 @@ from cv_monoslam_tpu_torch.config import SlamConfig
 from cv_monoslam_tpu_torch.convert import state_from_arrays, state_to_arrays
 from cv_monoslam_tpu_torch.filter.srukf import slam_step
 from cv_monoslam_tpu_torch.io import fixtures as tfix
+from cv_monoslam_tpu_torch.ops.host_reads import guarded
 from cv_monoslam_tpu_torch.parallel import launch
 from cv_monoslam_tpu_torch.parallel.mesh import (Layout, Mesh, check_layout,
                                                  make_mesh, replicate_hint,
@@ -49,6 +50,9 @@ from cv_monoslam_tpu_torch.parallel.spmd import run_frames, sharded_slam_step
 from test_spmd_filter import _cfg, _inputs
 
 WORLDS = (1, 2, 4)
+#: run_frames' redirect flags as host data: none, and one forced at frame 4
+HOST_FLAGS = {"none": (False,) * 8,
+              "frame4": (False,) * 4 + (True,) + (False,) * 3}
 CASES = {
     # name: (M, seed, redirect, shard_sqrt, odo_cur override)
     "landmark": (16, 0, False, False, None),
@@ -132,6 +136,15 @@ def ranks():
     index["frames"] = len(cases)
     cases.append((4, run_frames, (state0, images, odo, redirect, cfg,
                                   launch.MESH, Layout())))
+    for name, flags in HOST_FLAGS.items():
+        for shard_sqrt in (False, True):
+            # the redirect branch reads the host by design (it is eager
+            # on one device too): only the frame step is guarded
+            call = (guarded, run_frames) if name == "none" else (run_frames,)
+            index[name, shard_sqrt] = len(cases)
+            cases.append((1, call[0], call[1:] + (
+                state0, images, odo, flags, cfg, launch.MESH,
+                Layout(shard_sqrt))))
     try:
         res = launch.spawn(launch.run_cases, 4, "cpu", cases,
                            timeout_s=240.0)
@@ -210,6 +223,39 @@ def test_eight_frames_of_config1_at_four_ranks(ranks):
     for r in range(1, 4):
         np.testing.assert_array_equal(res[r][index["frames"]][1]["pose"],
                                       out["pose"])
+
+
+@pytest.mark.parametrize("shard_sqrt", (False, True))
+@pytest.mark.parametrize("flags", list(HOST_FLAGS))
+def test_run_frames_reads_no_device_value(ranks, flags, shard_sqrt):
+    """run_frames at one gloo rank with its redirect flags as host data: bit
+    for bit the single-device ``slam_step`` over the same frames, one frame
+    at a time on one thread as the rank computes; without a redirect under
+    the host-read guard (no host read or upload outside
+    ``control.host_bool``), and with a redirect forced at frame 4."""
+    res, index, _ = ranks
+    st, out = res[0][index[flags, shard_sqrt]]
+    cfg, state0, images, odo, _, _ = _track_inputs()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state = state_from_arrays(state_to_arrays(launch.to_device(
+            state0, "cpu")), device="cpu")
+        poses, n_map = [], []
+        for k in range(1, FRAMES):
+            state, o = slam_step(state, torch.as_tensor(images[k]),
+                                 torch.as_tensor(odo[k - 1]),
+                                 torch.as_tensor(odo[k]),
+                                 HOST_FLAGS[flags][k], cfg)
+            poses.append(o["pose"].numpy())
+            n_map.append(int(o["n_map"]))
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(out["pose"], np.stack(poses))
+    assert [int(v) for v in out["n_map"]] == n_map
+    got, want = state_to_arrays(st), state_to_arrays(state)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("shard_sqrt,m", [(True, 16), (False, 18)])
