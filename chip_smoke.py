@@ -12,8 +12,9 @@ Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
 
 1. the card: name and power limit (``nvidia-smi``), torch/CUDA versions;
-2. build: ``nvcc`` compiles ``cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu``
-   for sm_90a into ``.cache/torch_ext/`` (seconds printed);
+2. build: ``nvcc`` compiles each source of ``cv_monoslam_tpu_torch/ops/csrc/``
+   for sm_90a into ``.cache/torch_ext/``, one process each, all at once
+   (seconds printed);
 3. kernel vs plain version on the card, for the three kernels at M = 16,
    32, 37 and 576 on seeded random inputs (integer-valued regions like uint8
    frames, a flat window, a flat template, a planted exact match), max
@@ -61,6 +62,25 @@ non-zero and prints no result):
    through the graphs too; their launch counts are read on the device,
    and the fused kernel's captured inputs are read from the graph's
    tensors after the first replay and after the last;
+3c. step graphs and modes: (a) the two kernels of
+   ``csrc/linalg_kernels.cu``, ``rank_rotate`` (the rotation sweep of
+   ``chol_update`` / ``chol_downdate``) and ``gmw_chol`` (the modified
+   Cholesky), equal to their plain versions exactly (NaN where NaN) on
+   seeded inputs in float32 and float64 (n = 16, 100, 196, 580, k = 1-3,
+   downdates that lose positive definiteness, zero entries of U, a zero
+   U; indefinite, zero and non-finite A; one set each at n = 3460) and on
+   arguments kept from (d)'s eager runs, and their times against bound and
+   plain version; (b) config 1 through ``step()``, 48 frames by the graph
+   and the eager route from one state (a chunk replayed among the steps):
+   every discrete result equal, no synchronizing call and one event wait
+   in each step replay, the fused kernel once per frame, then frames/s of
+   ``run(chunk=1)`` by both routes in turns; (c) phase 6's forced redirect
+   through the redirect branch's step graph and through the eager step,
+   both holding ``REDIRECT_JAX_CPU``; (d) each update / QR mode of
+   :data:`MODES` on one config-1 window by the chunk graph and eagerly:
+   every discrete result equal, no synchronizing call in the dispatch,
+   each linalg kernel launched its count per matched slot times the
+   matched slots (read on the device), capture seconds and pools;
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
    timed after a warm-up chunk; checks the launch counters (the fused
@@ -171,13 +191,17 @@ non-zero and prints no result):
    (the reference's serial math in NumPy, on the host), on the synthetic
    ``straight`` (18 frames) and ``arc`` (68 frames) sequences. (R1)
    reference-faithful mode (``tests/test_parity.py``'s settings, float64,
-   plain vision versions: the kernels take float32): maps and match sets
+   plain vision versions: the kernels take float32; every step a replay
+   of a step graph, the ``gmw_chol`` kernel in it): maps and match sets
    equal on the straight 3-frame and arc 2-frame prefixes, poses within
    1e-6, the first-update posterior x within 1e-10 and P within 1e-9; (R2)
    default mode in float32 with the fused kernel at M = 16 over 67 frames:
    ATE at most 1.2 x the oracle's + 0.002 m, it once per tracked frame,
    0 escalated repairs and 0 skipped updates; (R3) faithful mode over 50
-   frames: identical match sets on at least 25, mean Jaccard at least 0.55.
+   frames: identical match sets on at least 25, mean Jaccard at least 0.55,
+   ``gmw_chol`` launched by the step graphs twice per matched slot the
+   eager run of the same frames updates (when their match sets agree),
+   frames/s by the step graphs and by the eager route (printed).
    Each value is printed beside the CPU's (``PARITY_CPU``);
 12. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -799,17 +823,17 @@ def captured_kernel_inputs(n: int = 3, armed: bool = True):
             captured.append((tuple(a.clone() for a in args), kw))
         return real(image, base, A, init_patch, **kw)
 
-    def capture(self, k, detect):
-        key[0] = (id(self), k, detect)
+    def capture(self, k, detect, redirect=False):
+        key[0] = (id(self), k, detect, redirect)
         try:
-            return real_capture(self, k, detect)
+            return real_capture(self, k, detect, redirect)
         finally:
             key[0] = None
 
     def dispatch(self, k):
         out = real_dispatch(self, k)
         nodes = out and captured.nodes.get(
-            (id(self), out["k"], self.chunk_detect[-1]))
+            (id(self), out["k"], self.chunk_detect[-1], False))
         if nodes and captured.armed:
             # queued after this replay, before the next one
             for args, kw in nodes[:n - len(captured)]:
@@ -1216,11 +1240,13 @@ def state_equal(a, b) -> Tuple[list, dict]:
     return discrete, floats
 
 
-def graph_vs_eager(sess, chunk: int, label: str) -> dict:
+def graph_vs_eager(sess, chunk: int, label: str, eager_ctx=None) -> dict:
     """(a) One window from one state through the graph and through an eager
     chunk (the private switch ``_graphs``): telemetry rows and final states
     compared. (b) The graph's dispatch under ``set_sync_debug_mode
-    ("error")``. The eager run's recurrence inputs are kept for (d)."""
+    ("error")``; the launches of the graph's window (``launches``). The
+    eager run's recurrence inputs are kept for (d); ``eager_ctx()`` is
+    entered around the eager run."""
     from cv_monoslam_tpu_torch.api import _unpack_row
     from cv_monoslam_tpu_torch.ops import control
 
@@ -1234,6 +1260,7 @@ def graph_vs_eager(sess, chunk: int, label: str) -> dict:
         sess.counter, sess._last_matched = c0, matched0
         if route == "graph":
             torch.cuda.synchronize()
+            reset_counters()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 pending = sess._dispatch_chunk(chunk)
@@ -1241,10 +1268,13 @@ def graph_vs_eager(sess, chunk: int, label: str) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
             scans = None
         else:
-            with captured_scan_inputs() as scans:
+            with captured_scan_inputs() as scans, \
+                    (eager_ctx or contextlib.nullcontext)():
                 pending = sess._dispatch_chunk(chunk)
         n0 = len(sess.records)
         sess._finish_chunk(pending)
+        if route == "graph":
+            counts = read_counters()
         runs[route] = (pending["rows"].numpy().copy(),
                        control.tree_map(torch.clone, sess.state), scans,
                        sess.records[n0:])
@@ -1268,7 +1298,7 @@ def graph_vs_eager(sess, chunk: int, label: str) -> dict:
                state_discrete_differ=discrete, state_float_max_diff=floats,
                telemetry_discrete_differ=tele_discrete,
                matched=[r.n_matched for r in recs_g],
-               dispatch_syncs=0)
+               dispatch_syncs=0, launches=counts)
     log(f"[graphs] (a)+(b) {label} detect={res['detect']}: rows equal "
         f"{res['rows_equal']} (max |diff| {row_diff:.3e}), state equal "
         f"{res['state_equal']} {floats if floats else ''}; dispatch under "
@@ -1457,7 +1487,7 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
                 raise AssertionError(f"{name}: {n_syncs[0]} syncs in a "
                                      f"dispatch; {problems}")
         res["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
-                            for (k, d, _), v in sess.capture_s.items()}
+                            for (k, d, _, _), v in sess.capture_s.items()}
         res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         res["footprint"] = pool_footprint(sess)
         if gates[0] is not None:
@@ -1489,6 +1519,533 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
         raise AssertionError(f"recurrence inputs captured: "
                              f"{out['captured']}")
     out["scan_times"] = scan_times(dev, floor, runs, baseline)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: step graphs, the other update / QR modes, and the two linalg
+# recurrences of csrc/linalg_kernels.cu
+# ---------------------------------------------------------------------------
+
+#: the kernels of csrc/linalg_kernels.cu
+LINALG_KERNELS = ("rank_rotate", "gmw_chol")
+#: phase 3c (d): the update / QR modes at the config-1 widths, and each
+#: linalg kernel's launches per matched slot of a frame in that mode
+MODES = (
+    ("sequential", dict(update_mode="sequential"),
+     dict(rank_rotate=1, gmw_chol=0)),
+    ("sequential_gmw", dict(update_mode="sequential", downdate_mode="gmw"),
+     dict(rank_rotate=0, gmw_chol=2)),
+    ("batched_householder", dict(update_mode="batched", qr_mode="householder"),
+     dict(rank_rotate=0, gmw_chol=0)),
+    ("gram_cholqr2", dict(qr_mode="cholqr2"),
+     dict(rank_rotate=0, gmw_chol=0)),
+)
+
+
+def rotate_inputs(n: int, k: int, rng, dev, dtype, case: str = "random"):
+    """(r, u) for ``rank_rotate``: r upper triangular with N(0, 1) entries
+    above a diagonal of |N(0, 1)| + 2; u (k, n) rows of scale 0.3
+    (``random``: a downdate keeps positive definiteness almost everywhere),
+    3 (``pd_loss``: many downdate columns lose it and are skipped), with a
+    third of their entries 0 (``zeros_in_u``), or all 0 (``zero``)."""
+    r = np.triu(rng.normal(size=(n, n)))
+    r[np.diag_indices(n)] = np.abs(r[np.diag_indices(n)]) + 2.0
+    u = rng.normal(size=(k, n)) * (3.0 if case == "pd_loss" else 0.3)
+    if case == "zeros_in_u":
+        u[rng.random(u.shape) < 1 / 3] = 0.0
+    elif case == "zero":
+        u[:] = 0.0
+    elif case not in ("random", "pd_loss"):
+        raise ValueError(case)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return t(r), t(u)
+
+
+def gmw_inputs(n: int, rng, dev, dtype, case: str = "spd"):
+    """A for ``gmw_chol``: ``spd`` B^T B / n + 0.01 I; ``gram_minus`` the
+    sequential update's form, a Gram minus an outer product larger than it
+    in one direction; ``indefinite`` a symmetric N(0, 1) matrix; ``zero``;
+    ``nonfinite`` the spd matrix with one entry +inf and another NaN."""
+    b = torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=dev)
+    if case in ("spd", "nonfinite", "gram_minus"):
+        a = b.T @ b / n + 0.01 * torch.eye(n, dtype=dtype, device=dev)
+        if case == "gram_minus":
+            v = torch.as_tensor(rng.normal(size=n), dtype=dtype, device=dev)
+            a = a - 4.0 * torch.outer(v, v)
+        elif case == "nonfinite":
+            i, j = rng.choice(n, 2, replace=False) if n > 1 else (0, 0)
+            a[i, j] = float("inf")
+            a[j, max(i - 1, 0)] = float("nan")
+    elif case == "indefinite":
+        a = 0.5 * (b + b.T)
+    elif case == "zero":
+        a = torch.zeros((n, n), dtype=dtype, device=dev)
+    else:
+        raise ValueError(case)
+    return (a.contiguous(),)
+
+
+def exact_diff(got: torch.Tensor, want: torch.Tensor) -> Tuple[int, float]:
+    """(entries that differ, NaN matching NaN; max |diff| over the entries
+    finite in both)."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    both = torch.isfinite(got) & torch.isfinite(want)
+    diff = (got - want)[both].abs()
+    return int((~same).sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def linalg_call(name: str, args, plain: bool = False):
+    """One call of kernel ``name`` (or its plain version) on ``args``:
+    ``rank_rotate`` (r, u, downdate), ``gmw_chol`` (a,)."""
+    from cv_monoslam_tpu_torch.ops import linalg
+
+    if name == "rank_rotate":
+        r, u, downdate = args
+        if plain:
+            return (linalg.chol_downdate_ref(r, u) if downdate
+                    else linalg.chol_update_ref(r, u))
+        return linalg.rank_rotate(r, u, downdate,
+                                  eps=1e-12 if downdate else 0.0)
+    return (linalg.gmw_chol_ref if plain else linalg.gmw_chol)(*args)
+
+
+def check_linalg(name: str, args, label: str, errs: dict) -> float:
+    """One launch of ``name`` against its plain version: equal exactly
+    (NaN where it is NaN). Returns the plain version's seconds."""
+    got = linalg_call(name, args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = linalg_call(name, args, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    bad, md = exact_diff(got, want)
+    errs[name] = max(errs.get(name, 0.0), md)
+    nonfinite = int((~torch.isfinite(want)).sum())
+    log(f"[check] {name} {label}: {bad} entries differ from the plain "
+        f"version (max |diff| {md:.3e}; {nonfinite} not finite in both)")
+    if bad:
+        raise AssertionError(f"{name} != its plain version {label}")
+    return plain_s
+
+
+def rotate_bound(n: int, k: int, itemsize: int) -> dict:
+    """R in, R' out, U in; operations: six per column right of a pivot
+    (four products, two sums) and ten per pivot, for each row of U. The
+    rate is 67 TFLOP/s for both types: float32 outside the tensor cores,
+    float64 through them (34 TFLOP/s outside)."""
+    return _bound((2 * n * n + k * n) * itemsize,
+                  k * (3 * n * (n - 1) + 10 * n))
+
+
+def gmw_bound(n: int, itemsize: int) -> dict:
+    """A in, S out; operations: three per entry of each pivot's trailing
+    block, two per entry of S, a few per pivot (the rate as
+    :func:`rotate_bound`'s)."""
+    return _bound(2 * n * n * itemsize,
+                  sum(3 * (n - j - 1) ** 2 for j in range(n))
+                  + 2 * n * n + 8 * n)
+
+
+def seeded_linalg_checks(dev, errs: dict) -> dict:
+    """(a) on seeded inputs, float32 and float64: ``rank_rotate`` both ways
+    at n = 16, 100, 196, 580 and k = 1, 2, 3, its PD-loss, zero-entry and
+    all-zero U at n = 196 and 580; ``gmw_chol`` at the same n on every
+    case of :func:`gmw_inputs` (one block up to n = 256, the cooperative
+    grid above); one set of each at n = 3460 (config 3's D), where the
+    plain loops take seconds. Returns the plain versions' seconds there."""
+    rng = np.random.default_rng(12)
+    plain_s = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[1]
+        for n in (16, 100, 196, 580):
+            for k in (1, 2, 3):
+                for downdate in (True, False):
+                    r, u = rotate_inputs(n, k, rng, dev, dtype)
+                    check_linalg("rank_rotate", (r, u, downdate),
+                                 f"{dt} n={n} k={k} "
+                                 f"{'down' if downdate else 'up'}date", errs)
+            if n in (196, 580):
+                for case in ("pd_loss", "zeros_in_u", "zero"):
+                    r, u = rotate_inputs(n, 2, rng, dev, dtype, case)
+                    check_linalg("rank_rotate", (r, u, True),
+                                 f"{dt} n={n} k=2 downdate {case}", errs)
+            for case in ("spd", "gram_minus", "indefinite", "zero",
+                         "nonfinite"):
+                check_linalg("gmw_chol", gmw_inputs(n, rng, dev, dtype, case),
+                             f"{dt} n={n} {case}", errs)
+        n = 3460
+        r, u = rotate_inputs(n, 1, rng, dev, dtype, "pd_loss")
+        plain_s[("rank_rotate", dt)] = check_linalg(
+            "rank_rotate", (r, u, True), f"{dt} n={n} k=1 downdate pd_loss",
+            errs)
+        plain_s[("gmw_chol", dt)] = check_linalg(
+            "gmw_chol", gmw_inputs(n, rng, dev, dtype, "gram_minus"),
+            f"{dt} n={n} gram_minus", errs)
+    return plain_s
+
+
+def linalg_times(dev, floor: float, plain_large: dict) -> dict:
+    """Kernel time (CUDA events behind a device backlog, :func:`time_ms`,
+    four distinct input sets) against the bound and the plain version, at
+    the shapes of the main paths (``rank_rotate`` n = 196, k = 2, float32:
+    config 1 sequential; ``gmw_chol`` n = 196 float32: config 1 gmw, n =
+    100 float64: faithful mode), and at n = 580 and 3460 by the host clock
+    over three synchronized calls (each takes milliseconds); dependent
+    steps (k n rotations, n pivots) and microseconds per step."""
+    rng = np.random.default_rng(13)
+    out = {}
+    shapes = (("rank_rotate", 196, 2, torch.float32),
+              ("rank_rotate", 100, 2, torch.float64),
+              ("rank_rotate", 580, 2, torch.float32),
+              ("rank_rotate", 3460, 1, torch.float32),
+              ("gmw_chol", 196, 0, torch.float32),
+              ("gmw_chol", 100, 0, torch.float64),
+              ("gmw_chol", 580, 0, torch.float32),
+              ("gmw_chol", 3460, 0, torch.float32))
+    for name, n, k, dtype in shapes:
+        dt = str(dtype).split(".")[1]
+        if name == "rank_rotate":
+            sets = [rotate_inputs(n, k, rng, dev, dtype) + (True,)
+                    for _ in range(4)]
+            b, steps = rotate_bound(n, k, dtype.itemsize), k * n
+        else:
+            sets = [gmw_inputs(n, rng, dev, dtype, "gram_minus")
+                    for _ in range(4)]
+            b, steps = gmw_bound(n, dtype.itemsize), n
+        if n <= 196:
+            ms, host = time_ms(lambda *a: linalg_call(name, a), sets)
+        else:                       # milliseconds a call: three suffice
+            ms, host = plain_ms(lambda *a: linalg_call(name, a),
+                                sets[0]), None
+        if n == 3460:
+            pl = plain_large[(name, dt)] * 1e3
+        else:
+            pl = plain_ms(lambda *a: linalg_call(name, a, plain=True),
+                          sets[0])
+        key = f"{name}_n{n}_{dt}"
+        out[key] = dict(ms=ms, host_ms=host, plain_ms=pl, steps=steps,
+                        us_per_step=(ms - floor) / steps * 1e3,
+                        shape=f"n={n}" + (f", k={k}" if k else "") + f", {dt}",
+                        library_ms=None, **b)
+        log(f"[time] {name} n={n}{f' k={k}' if k else ''} {dt}: kernel "
+            f"{ms:.4f} ms "
+            f"{f'(host {host:.4f})' if host else '(host clock, 3 calls)'}, "
+            f"plain {pl:.2f} ms, bound "
+            f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), {steps} "
+            f"dependent steps, {out[key]['us_per_step']:.3f} us per step "
+            f"above the launch floor {floor:.4f} ms")
+    return out
+
+
+@contextlib.contextmanager
+def counted_event_waits():
+    """Counts ``torch.cuda.Event.synchronize`` calls while active."""
+    real = torch.cuda.Event.synchronize
+    n = [0]
+
+    def wait(self):
+        n[0] += 1
+        return real(self)
+
+    torch.cuda.Event.synchronize = wait
+    try:
+        yield n
+    finally:
+        torch.cuda.Event.synchronize = real
+
+
+@contextlib.contextmanager
+def kept_telemetry(sess):
+    """Every frame's telemetry dict (copies) while active."""
+    import copy
+
+    teles = []
+    real = sess._post_frame
+
+    def post(rec, tele):
+        teles.append(copy.deepcopy(tele))
+        return real(rec, tele)
+
+    sess._post_frame = post
+    try:
+        yield teles
+    finally:
+        del sess._post_frame
+
+
+TELE_DISCRETE = ("n_map", "n_visible", "n_matched", "redirected", "health",
+                 "repairs", "lm_lid", "lm_active", "lm_matched")
+
+
+def telemetry_differ(a: list, b: list) -> Tuple[list, dict]:
+    """Discrete telemetry fields that differ between two runs' frames, and
+    the max |diff| of each float field."""
+    if len(a) != len(b):
+        return [f"{len(a)} vs {len(b)} frames"], {}
+    discrete = sorted({key for x, y in zip(a, b) for key in TELE_DISCRETE
+                       if not np.array_equal(x[key], y[key])})
+    floats = {}
+    for key in ("pose", "pose_sqrt_cov", "lm_match_px", "lm_xyz"):
+        d = max(float(np.abs(np.asarray(x[key], np.float64)
+                             - np.asarray(y[key], np.float64)).max())
+                for x, y in zip(a, b))
+        if d:
+            floats[key] = d
+    return discrete, floats
+
+
+def step_graph_config1(dev) -> dict:
+    """(b) Config 1 through ``step()``: 48 frames of ``bench1_arc`` from one
+    state by the graph route and by the eager route (23 steps, one chunk of
+    8, 17 steps: a chunk graph captured and replayed between step
+    replays); telemetry and final state compared; every step replay after
+    the first under ``set_sync_debug_mode("error")`` with its event waits
+    counted; the fused kernel once per frame; then frames/s of
+    ``run(chunk=1)`` by both routes on the same 24 frames (graph, eager,
+    eager, graph)."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+    from cv_monoslam_tpu_torch.ops import control
+
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
+    c0, s0 = sess.counter, control.tree_map(torch.clone, sess.state)
+    runs = {}
+    for route in ("graph", "eager"):
+        sess._graphs = route == "graph"
+        sess.state = control.tree_map(torch.clone, s0)
+        sess.counter, sess._last_matched = c0, 0
+        waits, guarded = 0, 0
+        torch.cuda.synchronize()
+        reset_counters()
+        with kept_telemetry(sess) as teles:
+            for i in range(41):
+                if i == 23:
+                    sess.step_chunk(8)          # a chunk between steps
+                    continue
+                if route == "eager" or i == 0:  # 0: the capture
+                    sess.step()
+                    continue
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    with counted_event_waits() as n:
+                        sess.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                waits += n[0]
+                guarded += 1
+        torch.cuda.synchronize()
+        runs[route] = dict(teles=teles, counts=read_counters(),
+                           state=control.tree_map(torch.clone, sess.state),
+                           waits=waits, guarded=guarded)
+    sess._graphs = True
+    g, e = runs["graph"], runs["eager"]
+    tele_d, tele_f = telemetry_differ(g["teles"], e["teles"])
+    st_d, st_f = state_equal(g["state"], e["state"])
+    problems = []
+    for route, r in runs.items():
+        problems += launch_problems(r["counts"], 48, f"config 1 by step() "
+                                    f"({route})")
+    capture = {("x".join(str(x) for x in key[:3])): v
+               for key, v in sess.capture_s.items()}
+    start = (c0, s0, 0)
+    fps = routes_fps(sess, start, 1, 24)
+    res = dict(frames=len(g["teles"]), telemetry_discrete_differ=tele_d,
+               telemetry_float_max_diff=tele_f, state_discrete_differ=st_d,
+               state_float_max_diff=st_f, guarded_steps=g["guarded"],
+               event_waits=g["waits"], capture_s=capture, fps=fps,
+               launches=launches(g["counts"]),
+               launches_eager=launches(e["counts"]))
+    log(f"[steps] (b) config 1, 48 frames by step() (23 steps, a chunk of "
+        f"8, 17 steps): graph == eager in every discrete result "
+        f"{not tele_d and not st_d} (telemetry floats {tele_f}, state floats "
+        f"{st_f}); {g['guarded']} step replays under set_sync_debug_mode("
+        f"'error'): no synchronizing call, {g['waits']} event waits; "
+        f"launches by the graph route {res['launches']}; capture {capture} "
+        f"s; run(chunk=1) frames/s graph {fps['graph']} eager "
+        f"{fps['eager']}")
+    if tele_d or st_d:
+        problems.append(f"step graph != eager step in {tele_d + st_d}")
+    if g["waits"] != g["guarded"]:
+        problems.append(f"{g['waits']} event waits in {g['guarded']} steps")
+    if problems:
+        raise AssertionError("step graphs (b): " + "; ".join(problems))
+    return res
+
+
+def step_graph_redirect(dev) -> dict:
+    """(c) Phase 6's forced redirect (frame 24 of ``bench1_arc``, config 1)
+    through the step graph of the redirect branch and through the eager
+    step, from one state: telemetry and state compared, both holding
+    ``REDIRECT_JAX_CPU``; the redirect graph's second replay under
+    ``set_sync_debug_mode("error")``."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+    from cv_monoslam_tpu_torch.ops import control
+
+    at = 24
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    track.redirect[at] = True
+    sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
+    sess.run(n_frames=at - 1, chunk=8)
+    c0, m0 = sess.counter, sess._last_matched
+    s0 = control.tree_map(torch.clone, sess.state)
+    runs = {}
+    for route in ("graph", "eager"):
+        sess._graphs = route == "graph"
+        for rep in range(2 if route == "graph" else 1):
+            sess.state = control.tree_map(torch.clone, s0)
+            sess.counter, sess._last_matched = c0, m0
+            torch.cuda.synchronize()
+            with kept_telemetry(sess) as teles, \
+                    contextlib.ExitStack() as stack:
+                if rep:             # the replay after the capture
+                    torch.cuda.set_sync_debug_mode("error")
+                    stack.callback(torch.cuda.set_sync_debug_mode, "default")
+                rec = sess.step()
+        runs[route] = dict(
+            teles=teles, state=control.tree_map(torch.clone, sess.state),
+            got=dict(n_map=rec.n_map,
+                     n_loop=int(sess.state.lm.is_loop.sum()),
+                     stored_valid=int(sess.state.stored.valid.sum())),
+            redirected=rec.redirected)
+    sess._graphs = True
+    g, e = runs["graph"], runs["eager"]
+    tele_d, tele_f = telemetry_differ(g["teles"], e["teles"])
+    st_d, st_f = state_equal(g["state"], e["state"])
+    keys = [k for k in sess.capture_s if k[2]]
+    res = dict(graph=g["got"], eager=e["got"], expected=REDIRECT_JAX_CPU,
+               telemetry_discrete_differ=tele_d, telemetry_float_max_diff=tele_f,
+               state_discrete_differ=st_d, state_float_max_diff=st_f,
+               capture_s=[sess.capture_s[k] for k in keys])
+    log(f"[steps] (c) forced redirect at frame {at} through the redirect "
+        f"branch's step graph: {g['got']} (eager {e['got']}, JAX on a CPU "
+        f"{REDIRECT_JAX_CPU}); graph == eager in every discrete result "
+        f"{not tele_d and not st_d} (telemetry floats {tele_f}, state floats "
+        f"{st_f}); its second replay under set_sync_debug_mode('error'): no "
+        f"synchronizing call; capture {res['capture_s']} s")
+    problems = []
+    if len(keys) != 1 or not (g["redirected"] and e["redirected"]):
+        problems.append(f"redirect graphs {keys}")
+    if tele_d or st_d:
+        problems.append(f"graph != eager in {tele_d + st_d}")
+    for route, r in runs.items():
+        if r["got"] != REDIRECT_JAX_CPU:
+            problems.append(f"{route}: {r['got']} != {REDIRECT_JAX_CPU}")
+    if problems:
+        raise AssertionError("step graphs (c): " + "; ".join(problems))
+    return res
+
+
+@contextlib.contextmanager
+def recorded_updates(kept: list, matched: list, n: int = 3):
+    """While active: the matched slots each ``kalman_update`` sees (one host
+    read each, eager only) and the arguments of the first ``n`` calls of
+    the two linalg kernels by the sequential update (copies)."""
+    from cv_monoslam_tpu_torch.filter import srukf, update
+
+    real_update = srukf.kalman_update
+    real_down, real_gmw = update.chol_downdate, update.gmw_chol
+
+    def kalman(state, cache, cfg):
+        matched.append(int(state.lm.matched.sum()))
+        return real_update(state, cache, cfg)
+
+    def keep(name, args):
+        if sum(k == name for k, _ in kept) < n:
+            kept.append((name, args))
+
+    def down(r, u, *a):
+        keep("rank_rotate", (r.clone(), u.clone(), True))
+        return real_down(r, u, *a)
+
+    def gmw(a):
+        keep("gmw_chol", (a.clone(),))
+        return real_gmw(a)
+
+    with patched(srukf, "kalman_update", kalman), \
+            patched(update, "chol_downdate", down), \
+            patched(update, "gmw_chol", gmw):
+        yield
+
+
+def step_graph_modes(dev, errs: dict) -> dict:
+    """(d) Each update / QR mode of :data:`MODES` at the config-1 widths:
+    the first window of 8 frames, once more after its capture, by the
+    chunk graph and by the eager route from one state (:func:`graph_vs_eager`: every discrete result equal, the
+    dispatch under ``set_sync_debug_mode("error")``), each linalg kernel's
+    launches in the graph's window equal to the matched slots of its frames
+    times the mode's count per slot (read on the device; the slots from the
+    eager run of the same window); capture seconds and the pools' reserve;
+    both kernels against their plain versions on arguments kept from the
+    eager runs."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+
+    from cv_monoslam_tpu_torch.ops import control
+
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    out, kept, problems = {}, [], []
+    for name, kw, per_slot in MODES:
+        sess = SlamSession(SlamConfig(**CONFIG1, **kw), seq, track,
+                           device=dev)
+        # the first window, where the sequential modes still match most
+        # landmarks (in float32 they lose most matches from frame 5 on)
+        c0, s0 = sess.counter, control.tree_map(torch.clone, sess.state)
+        sess.step_chunk(8)                      # captures (8, detect)
+        sess.state, sess.counter = s0, c0
+        sess._last_matched = 0
+        matched = []
+        r, _ = graph_vs_eager(
+            sess, 8, name,
+            eager_ctx=lambda: recorded_updates(kept, matched))
+        counts = r["launches"]
+        want = {k: sum(matched) * per_slot[k] for k in LINALG_KERNELS}
+        got = {k: counts[k] for k in LINALG_KERNELS}
+        fp = pool_footprint(sess)
+        out[name] = dict(graph_vs_eager=r, matched_slots=sum(matched),
+                         launches=got, expected=want,
+                         capture_s=list(sess.capture_s.values()),
+                         footprint=fp)
+        log(f"[steps] (d) {name}: graph == eager rows {r['rows_equal']} "
+            f"(max |diff| {r['rows_max_abs_diff']:.3e}), state "
+            f"{r['state_equal']} {r['state_float_max_diff'] or ''}; dispatch "
+            f"under set_sync_debug_mode('error'): no synchronizing call; "
+            f"{sum(matched)} matched slots in the window, linalg launches "
+            f"{got} (want {want}), fused {counts['warp_ncc_score_map']}; "
+            f"capture {out[name]['capture_s']} s; reserved: graph pool "
+            f"{fp['graph_pool'] / 2**20:.1f} MiB, body pool "
+            f"{fp['body_pool'] / 2**20:.1f} MiB")
+        if got != want or counts["warp_ncc_score_map"] != 8:
+            problems.append(f"{name}: launches {got} (want {want}), fused "
+                            f"{counts['warp_ncc_score_map']} in 8 frames")
+    for i, (name, args) in enumerate(kept):
+        check_linalg(name, args, f"captured {i} (n={args[0].shape[0]}, "
+                     f"{args[0].dtype})", errs)
+    if {name for name, _ in kept} != set(LINALG_KERNELS):
+        problems.append(f"kept arguments of {[n for n, _ in kept]}")
+    if problems:
+        raise AssertionError("step graphs (d): " + "; ".join(problems))
+    return out
+
+
+def phase_step_graphs(dev, errs: dict, floor: float) -> dict:
+    """Phase 3c: (a) the two linalg kernels against their plain versions on
+    seeded inputs, exactly, and their times; (b) config 1 through step
+    graphs; (c) the redirect branch as a graph; (d) every update / QR
+    mode by the chunk graphs."""
+    errs.setdefault("rank_rotate", 0.0)
+    errs.setdefault("gmw_chol", 0.0)
+    plain_large = seeded_linalg_checks(dev, errs)
+    out = dict(times=linalg_times(dev, floor, plain_large))
+    out["b"] = step_graph_config1(dev)
+    out["c"] = step_graph_redirect(dev)
+    out["d"] = step_graph_modes(dev, errs)
     return out
 
 
@@ -2265,24 +2822,62 @@ def phase_reference(dev, smi: str) -> dict:
     if res["escalations"] or res["skipped"]:
         problems.append("(R2) escalated repairs or skipped updates")
 
-    # (R3) faithful mode, 50 frames: match-set statistics
+    # (R3) faithful mode, 50 frames: match-set statistics, through the
+    # step graphs (frames 2-50 timed: the first captures); then the same
+    # frames by the eager route, timed alike, its match sets beside
     oracle, sess, _, _ = pair("arc", faithful)
-    identical, jac = 0, []
-    for _ in range(50):
+    identical, jac, graph_sets = 0, [], []
+    reset_counters()
+    port_s = 0.0
+    for i in range(50):
         oracle_step(oracle)
+        t = time.perf_counter()
         sess.step()
+        port_s += (time.perf_counter() - t) * (i > 0)
         e = set(_match_sets(sess.state)[1])
         o = set(_oracle_sets(oracle)[1])
+        graph_sets.append(e)
         identical += e == o
         jac.append(len(e & o) / len(e | o) if e | o else 1.0)
-    res.update(identical=identical, jaccard=float(np.mean(jac)))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    res["launches_faithful"] = counts
+    res.update(identical=identical, jaccard=float(np.mean(jac)),
+               r3_fps_graph=49 / port_s,
+               r3_step_graphs=sorted(str(k[:3]) for k in sess._chunk_steps))
     if not (identical >= 25 and res["jaccard"] >= 0.55):
         problems.append(f"(R3) {identical}/50 identical, mean Jaccard "
                         f"{res['jaccard']}")
+    if not any(k[0] == 1 for k in sess._chunk_steps) or not counts[
+            "gmw_chol"] or counts["rank_rotate"]:
+        problems.append(f"(R3) step graphs {res['r3_step_graphs']}, "
+                        f"launches {counts}")
+    seq, track, _, _ = seqs["arc"]
+    eager = SlamSession(faithful, seq, track, device=dev)
+    eager._graphs = False
+    port_s, same, matched = 0.0, 0, []
+    with recorded_updates([], matched, n=0):
+        for i in range(50):
+            t = time.perf_counter()
+            eager.step()
+            port_s += (time.perf_counter() - t) * (i > 0)
+            same += set(_match_sets(eager.state)[1]) == graph_sets[i]
+    res.update(r3_fps_eager=49 / port_s, r3_eager_same_sets=same,
+               r3_matched_slots=sum(matched))
+    if same == 50 and counts["gmw_chol"] != 2 * sum(matched):
+        problems.append(f"(R3) gmw_chol launched {counts['gmw_chol']} "
+                        f"times by the step graphs for {sum(matched)} "
+                        f"matched slots")
     res["seconds"] = time.perf_counter() - t0
 
     log("[reference] " + json.dumps(res))
     cpu = PARITY_CPU
+    log(f"[reference] [{smi}] (R3) faithful mode by step graphs "
+        f"{res['r3_fps_graph']:.2f} frames/s, eager "
+        f"{res['r3_fps_eager']:.2f} frames/s (frames 2-50); eager match "
+        f"sets equal to the graph's on {res['r3_eager_same_sets']}/50 "
+        f"frames; {res['r3_matched_slots']} matched slots updated (eager "
+        f"run); launches {res['launches_faithful']}")
     log(f"[reference] [{smi}] (R1) max|pose - oracle|: straight "
         f"{max(res['straight_dpose']):.3e} (CPU {cpu['straight_dpose']:.1e}),"
         f" arc {max(res['arc_dpose']):.3e} (CPU {cpu['arc_dpose']:.1e}); "
@@ -2947,7 +3542,7 @@ def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
                                                 "config3_dist_chol")
         b["routes"] = routes_fps(sess, start, 8, 3)
         b["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
-                          for (k, d, _), v in sess.capture_s.items()}
+                          for (k, d, _, _), v in sess.capture_s.items()}
         b["footprint"] = pool_footprint(sess)
         sess._graphs = False
         with kept_dist_chol_matrix() as kept:
@@ -3273,6 +3868,7 @@ def main() -> int:
     baseline = load_baseline(args.baseline) if args.baseline else None
     gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"],
              baseline)
+    sg = run(phase_step_graphs, dev, errs, times["launch_floor_ms"])
     sl = run(phase_slice, dev, errs)
     c3 = run(phase_config3, dev, errs)
     rd = run(phase_redirect, dev)
@@ -3310,6 +3906,7 @@ def main() -> int:
                  launches_four_ranks=[r[name] for r in
                                       md["e"]["launches_per_rank"]],
                  launches_reference=ref["launches"][name],
+                 launches_step_graphs=sg["b"]["launches"][name],
                  launches_shard_sqrt=md["f"]["launches"][name],
                  launches_shard_sqrt_four_ranks=[
                      r[name] for r in md["f4"]["launches_per_rank"]],
@@ -3364,6 +3961,7 @@ def main() -> int:
                  launches_redirect=rd["launches"][name],
                  launches_config4=c4["launches"][name],
                  launches_reference=ref["launches"][name],
+                 launches_step_graphs=sg["b"]["launches"][name],
                  max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
                  bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                  library_ms=None, host_ms=t["host_ms"], shape=t["shape"],
@@ -3377,6 +3975,38 @@ def main() -> int:
         k.update({f"{key}_{sfx}": to[key] for key in (
             "ms", "plain_ms", "bound_ms", "shape", "steps", "us_per_step",
             "ms_runs", "baseline_ms", "alt_ms")})
+        kernels.append(k)
+    linalg_meta = {
+        "rank_rotate": dict(
+            replaces="cv_monoslam_tpu/ops/linalg.py:191-271 (_rank1_rotate "
+                     "scanned over U's rows by chol_update / chol_downdate; "
+                     "lax.scan, no Pallas kernel)",
+            main="rank_rotate_n196_float32", mode="sequential"),
+        "gmw_chol": dict(
+            replaces="cv_monoslam_tpu/ops/linalg.py:148-188 (lax.scan, no "
+                     "Pallas kernel)",
+            main="gmw_chol_n196_float32", mode="sequential_gmw"),
+    }
+    for name, mt in linalg_meta.items():
+        t = sg["times"][mt["main"]]
+        k = dict(name=name, route="cuda",
+                 source="cv_monoslam_tpu_torch/ops/csrc/linalg_kernels.cu",
+                 replaces=mt["replaces"],
+                 launches=sg["d"][mt["mode"]]["launches"][name],
+                 launches_modes={m: sg["d"][m]["launches"][name]
+                                 for m, _, _ in MODES},
+                 launches_faithful=ref["launches_faithful"][name],
+                 max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                 library_ms=None, host_ms=t["host_ms"], shape=t["shape"],
+                 steps=t["steps"], us_per_step=t["us_per_step"],
+                 launch_floor_ms=times["launch_floor_ms"])
+        for key, tk in sg["times"].items():
+            if key.startswith(name) and key != mt["main"]:
+                sfx = key[len(name) + 1:]
+                k.update({f"{f}_{sfx}": tk[f] for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "steps",
+                    "us_per_step")})
         kernels.append(k)
     for name in ("config1", "config3", "config4"):
         g = gr[name]
@@ -3412,7 +4042,14 @@ def main() -> int:
         f"a graph, {md['c']['ms_per_iter_single']:.3f} single eager")
     log(f"[reference] (R2) ATE {ref['ate_port']:.6f} m vs oracle "
         f"{ref['ate_oracle']:.6f} m; (R3) {ref['identical']}/50 identical, "
-        f"Jaccard {ref['jaccard']:.3f}")
+        f"Jaccard {ref['jaccard']:.3f}; faithful mode frames/s by step "
+        f"graphs {ref['r3_fps_graph']:.2f}, eager {ref['r3_fps_eager']:.2f}")
+    b = sg["b"]
+    log(f"[steps] [{info['smi']}] config 1 run(chunk=1) frames/s graph "
+        f"{b['fps']['graph']} eager {b['fps']['eager']}; capture "
+        f"{b['capture_s']} s; modes (window of 8, graph == eager): " +
+        ", ".join(f"{m} capture {sg['d'][m]['capture_s']} s" for m, _, _
+                  in MODES))
     log(info["smi"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,13 +7,14 @@ the end of the odometry track (``run``), collecting per-frame telemetry.
 Each frame is one call of ``filter.srukf.slam_step``. A chunk of k frames
 has the JAX session's machinery, name for name (``cv_monoslam_tpu/api.py``):
 
-* ``_chunk_fn(k, detect)``: on the card, k calls of ``slam_step`` plus
-  ``_pack_row`` captured as ONE ``torch.cuda.CUDAGraph`` per ``(k,
-  detect)`` key (the JAX package's ``jax.jit(lax.scan(...))``), every gate
-  of the frame a conditional node on the device (``ops/control.py``), so a
-  replay reads nothing back to the host. It reads static inputs (the
-  session's state buffers, the (k, H, W) window, the k + 1 odometry rows)
-  and writes static outputs (the state buffers, the (k, row) telemetry).
+* ``_chunk_fn(k, detect, redirect)``: on the card, k calls of ``slam_step``
+  plus ``_pack_row`` captured as ONE ``torch.cuda.CUDAGraph`` per ``(k,
+  detect, redirect)`` key (the JAX package's ``jax.jit(lax.scan(...))``),
+  every gate of the frame a conditional node on the device
+  (``ops/control.py``), so a replay reads nothing back to the host. It
+  reads static inputs (the session's state buffers, the (k, H, W) window,
+  the k + 1 odometry rows) and writes static outputs (the state buffers,
+  the (k, row) telemetry).
   A warm-up frame runs eagerly on a side stream before each capture, with
   both sides of every gate; all of a session's graphs share one memory
   pool (they never run at once). A failed capture or replay raises: there
@@ -29,14 +30,17 @@ has the JAX session's machinery, name for name (``cv_monoslam_tpu/api.py``):
   watchdog and no backend is attached and either the detect gate is off or
   ``detect_gate_margin`` is set (the gate then reads the match count one
   chunk stale).
+* ``step``: one frame, the replay of the one-frame graph of key ``(1,
+  True, redirect)`` (the JAX session's ``_step_normal`` /
+  ``_step_redirect``); its telemetry row comes back by one pinned copy and
+  one event wait. Every redirection frame goes through it.
 
 The eager route (the same ``slam_step`` calls, each gate read on the host)
-runs a chunk instead when the config asks for a mode the graphs do not
-cover (``sigma_mode`` other than ``"full"`` / ``"implicit"``, ``update_mode``
-or ``qr_mode`` other than ``"gram"``), under an ambient mesh
-(``ops.linalg.AMBIENT``, the ``parallel/`` paths), on the CPU, or when the
-private switch ``_graphs`` is off. Single ``step()`` calls, which also take
-every redirection frame, are eager, as the JAX session single-steps them.
+runs instead on the CPU, under an ambient ``gloo`` mesh (its collectives
+move tensors through the host; ``ops.linalg.AMBIENT``, the ``parallel/``
+paths), or when the private switch ``_graphs`` is off. Every update and QR
+mode takes the graph route on the card. ``initialize`` runs eagerly, once
+per session.
 
 Per-frame host side effects (``_post_frame``) read only the telemetry the
 chunk already fetched: the run recorder (``io.recording.RunRecorder``), the
@@ -195,7 +199,8 @@ class SlamSession:
         self.chunk_detect: List[bool] = []
         #: private switch: False runs every chunk by the eager route
         self._graphs = True
-        #: (k, detect) -> _ChunkGraph, and each capture's seconds
+        #: (k, detect, redirect, ambient mesh) -> _ChunkGraph, and each
+        #: capture's seconds
         self._chunk_steps: dict = {}
         self.capture_s: dict = {}
         self._state_buf: Optional[FilterState] = None
@@ -320,18 +325,24 @@ class SlamSession:
         return sess
 
     def step(self) -> Optional[FrameRecord]:
-        """One frame, eager (also every redirection frame)."""
+        """One frame (also every redirection frame): on the graph route one
+        replay of the frame's graph and one event wait for its telemetry."""
         k = self.counter
         if k >= len(self.track):
             return None
         self.timer.start()
-        img = self._to_device(
-            self._prep_image(self.images.get(int(self.track.frame_id[k]))))
-        self.state, out = slam_step(self.state, img, self._odo[k - 1],
-                                    self._odo[k], bool(self._redirect[k]),
-                                    self.cfg)
-        row = _pack_row(out, self.cfg.max_landmarks).cpu().numpy()
-        tele = _unpack_row(row, self.cfg.max_landmarks)
+        host = torch.from_numpy(self._prep_image(
+            self.images.get(int(self.track.frame_id[k])))[None])
+        if self.device.type == "cuda":
+            img = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            img = host.to(self.device)
+        fn = self._chunk_fn(1, True, bool(self._redirect[k]))
+        self.state, rows = fn(self.state, img, self._odo[k - 1:k + 1])
+        rows, done = self._fetch_rows(rows)
+        if done is not None:
+            done.synchronize()
+        tele = _unpack_row(rows.numpy()[0], self.cfg.max_landmarks)
         rec = self._record(k, tele, self.timer.stop())
         self.counter += 1
         self._last_matched = rec.n_matched
@@ -390,33 +401,30 @@ class SlamSession:
         self._img_prefetch = ((ks, k), slot[0], slot, ready)
 
     def _graph_route(self) -> bool:
-        """Chunks run as captured graphs: on the card, in the modes the
-        graphs cover, unless switched off. Under an ambient mesh only when
-        its collectives can be captured (NCCL; ``Mesh.captures``): a
-        ``gloo`` mesh moves tensors through the host, so its chunks run
-        eagerly."""
-        cfg = self.cfg
+        """Frames run as captured graphs: on the card, unless switched off.
+        Under an ambient mesh only when its collectives can be captured
+        (NCCL; ``Mesh.captures``): a ``gloo`` mesh moves tensors through
+        the host, so its frames run eagerly."""
         mesh = AMBIENT.get()[0]
         return (self._graphs and self.device.type == "cuda"
-                and cfg.sigma_mode in ("full", "implicit")
-                and cfg.update_mode == "gram" and cfg.qr_mode == "gram"
                 and (mesh is None or mesh.captures))
 
-    def _chunk_fn(self, k: int, detect: bool = True):
+    def _chunk_fn(self, k: int, detect: bool = True, redirect: bool = False):
         """``fn(state, imgs, odo) -> (state, rows)`` running k frames
         (``imgs`` the (k, H, W) window, ``odo`` its k + 1 odometry rows),
         rows the (k, row) packed telemetry. On the graph route the graph
-        of key ``(k, detect)`` and the ambient mesh (with its layout; its
-        collectives are captured inside), captured at its first use; else
-        the eager loop. ``detect=False`` leaves the detection pipeline
-        out."""
+        of key ``(k, detect, redirect)`` and the ambient mesh (with its
+        layout; its collectives are captured inside), captured at its
+        first use; else the eager loop. ``detect=False`` leaves the
+        detection pipeline out; ``redirect`` runs every frame by the
+        redirect branch (``step`` of a redirection frame, k = 1)."""
         if not self._graph_route():
-            return lambda state, imgs, odo: self._frames(state, imgs, odo,
-                                                         detect)
-        key = (k, detect, AMBIENT.get())
+            return lambda state, imgs, odo: self._frames(
+                state, imgs, odo, detect, redirect)
+        key = (k, detect, redirect, AMBIENT.get())
         if key not in self._chunk_steps:
             t0 = time.perf_counter()
-            self._chunk_steps[key] = self._capture_chunk(k, detect)
+            self._chunk_steps[key] = self._capture_chunk(k, detect, redirect)
             self.capture_s[key] = time.perf_counter() - t0
         g = self._chunk_steps[key]
 
@@ -431,18 +439,19 @@ class SlamSession:
         return replay
 
     def _frames(self, state: FilterState, imgs: torch.Tensor,
-                odo: torch.Tensor, detect: bool):
+                odo: torch.Tensor, detect: bool, redirect: bool = False):
         """``slam_step`` over the window ``imgs`` (its k + 1 odometry rows
         ``odo``): (the state after it, the (k, row) packed telemetry)."""
         imgs = imgs.to(self._dtype)
         rows = []
         for i in range(imgs.shape[0]):
-            state, out = slam_step(state, imgs[i], odo[i], odo[i + 1], False,
-                                   self.cfg, allow_detect=detect)
+            state, out = slam_step(state, imgs[i], odo[i], odo[i + 1],
+                                   redirect, self.cfg, allow_detect=detect)
             rows.append(_pack_row(out, self.cfg.max_landmarks))
         return state, torch.stack(rows)
 
-    def _capture_chunk(self, k: int, detect: bool) -> "_ChunkGraph":
+    def _capture_chunk(self, k: int, detect: bool,
+                       redirect: bool = False) -> "_ChunkGraph":
         dev = self.device
         if self._state_buf is None:
             self._state_buf = control.tree_map(torch.clone, self.state)
@@ -461,13 +470,13 @@ class SlamSession:
         side = control.capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side), control.warmup():
-            self._frames(buf, imgs[:1], odo[:2], detect)
+            self._frames(buf, imgs[:1], odo[:2], detect, redirect)
         torch.cuda.current_stream(dev).wait_stream(side)
 
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=side), \
                 control.capture(self._body_pool):
-            st, rows = self._frames(buf, imgs, odo, detect)
+            st, rows = self._frames(buf, imgs, odo, detect, redirect)
             control.write_back(buf, st)
         return _ChunkGraph(graph=graph, imgs=imgs, odo=odo, rows=rows)
 
@@ -494,16 +503,9 @@ class SlamSession:
         imgs, slot = self._window_images(ks, k)
         self.state, rows = self._chunk_fn(k, detect)(
             self.state, imgs, self._odo[ks - 1:ks + k])
-        if self.device.type == "cuda":
-            main = torch.cuda.current_stream(self.device)
-            if slot is not None:
-                slot[1] = main.record_event()      # window consumed
-            host = torch.empty(rows.shape, dtype=rows.dtype,
-                               pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            done = main.record_event()
-        else:
-            host, done = rows, None
+        if slot is not None:                       # window consumed
+            slot[1] = torch.cuda.current_stream(self.device).record_event()
+        host, done = self._fetch_rows(rows)
         # prefetch the NEXT window's images while the device computes
         ns = ks + k
         if (ns + k <= len(self.track)
@@ -511,6 +513,17 @@ class SlamSession:
             self._prefetch_images(ns, k)
         self.counter += k
         return dict(rows=host, done=done, ks=ks, k=k, t0=t0)
+
+    def _fetch_rows(self, rows: torch.Tensor):
+        """The telemetry ``rows`` on the host: on the card a copy into pinned
+        memory queued right behind the replay, so no other graph's replay
+        can overwrite its pool first, and the event that copy completes
+        (None on the CPU)."""
+        if self.device.type != "cuda":
+            return rows, None
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
+        return host, torch.cuda.current_stream(self.device).record_event()
 
     def _finish_chunk(self, pending: dict) -> List[FrameRecord]:
         """Materialize a dispatched chunk's telemetry (wait on its event)
@@ -537,7 +550,7 @@ class SlamSession:
     def step_chunk(self, k: int) -> List[FrameRecord]:
         """Process up to ``k`` frames in ONE dispatch (one replay on the
         graph route). Frames up to and including a redirection frame are
-        single-stepped instead.
+        single-stepped instead (:meth:`step`).
 
         With ``detect_host_gate`` the whole chunk runs with or without the
         detection pipeline, decided from the latest match count seen."""

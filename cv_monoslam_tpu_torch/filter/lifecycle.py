@@ -77,7 +77,6 @@ def fold_delete(x: torch.Tensor, S: torch.Tensor, delete: torch.Tensor,
     dtype, dev = x.dtype, x.device
     row_mask = torch.cat([torch.repeat_interleave(delete, 6),
                           torch.zeros(4, dtype=torch.bool, device=dev)])
-    rep = 0
     if cfg.qr_mode == "gram":
         # structured Gram: T = S diag(1-m), so [T; E]^T [T; E] is S^T S with
         # the masked rows+columns zeroed plus the unit diagonal
@@ -91,6 +90,8 @@ def fold_delete(x: torch.Tensor, S: torch.Tensor, delete: torch.Tensor,
         T = torch.where(row_mask[None, :], torch.zeros_like(S), S)
         E = torch.diag(row_mask.to(dtype))
         S_new = qr_r(torch.cat([T, E], dim=0), cfg.qr_mode)
+        # a device zero: the level leaves update_features' cond as a tensor
+        rep = torch.zeros((), dtype=torch.int32, device=dev)
     x_new = torch.where(row_mask, _feature_defaults(M, dtype, dev), x)
     return x_new, S_new, rep
 
@@ -514,50 +515,62 @@ def readd_stored(state: FilterState, readd_mask: torch.Tensor,
     """Splice stored features back into free slots with their saved 6-dim
     state and 6x6 sqrt block, decoupled from the rest (SLAM.cpp:948-1015).
 
-    Stored records are taken in table order; each takes the first slot that
-    is free after the previous one was filled, and records left over when
-    the map is full stay in the table. Two host reads (the set entries and
-    the free slots) replace a per-record loop."""
-    dev = state.x.device
-    js = torch.nonzero(readd_mask).flatten()
-    free = torch.nonzero(~state.lm.active).flatten()
-    n = min(js.numel(), free.numel())
-    if n == 0:
+    The JAX package's scan over the stored table, on fixed shapes and with
+    no host read: the r-th set record (table order) goes to the r-th free
+    slot (slot order), the first slot still free when the record before it
+    has taken its own; the pairs beyond min(records, free slots) are masked
+    out, so records left over when the map is full stay in the table."""
+    M = cfg.max_landmarks
+    K = readd_mask.shape[0]
+    if K == 0:
         return state
-    js, slots = js[:n], free[:n]
+    dev = state.x.device
     sd, lm = state.stored, state.lm
-    rows = 6 * slots[:, None] + torch.arange(6, device=dev)[None, :]  # (n, 6)
-    flat = rows.reshape(-1)
+    free = ~lm.active
+    rec_rank = torch.cumsum(readd_mask.to(torch.int64), 0) - 1   # (K,)
+    free_rank = torch.cumsum(free.to(torch.int64), 0) - 1        # (M,)
+    n_pairs = torch.minimum(rec_rank[-1] + 1, free_rank[-1] + 1)
+    # the record of each rank (a dump entry K takes the unset records)
+    at = torch.where(readd_mask, rec_rank, torch.full_like(rec_rank, K))
+    of_rank = torch.zeros(K + 1, dtype=torch.int64, device=dev).scatter_(
+        0, at, torch.arange(K, device=dev))[:K]
+    take = free & (free_rank < n_pairs)                          # (M,)
+    js = of_rank[torch.clamp(free_rank, 0, K - 1)]               # (M,)
+
+    rows = torch.cat([torch.repeat_interleave(take, 6),
+                      torch.zeros(4, dtype=torch.bool, device=dev)])
     x_new = state.x.clone()
-    x_new[flat] = sd.state[js].reshape(-1).to(x_new.dtype)
-    # zero slot rows+cols then write the saved blocks (decoupled)
-    S_new = state.S.clone()
-    S_new[flat] = 0.0
-    S_new[:, flat] = 0.0
-    S_new[rows[:, :, None], rows[:, None, :]] = sd.sr[js].to(S_new.dtype)
+    x_new[:6 * M] = torch.where(rows[:6 * M],
+                                sd.state[js].reshape(-1).to(x_new.dtype),
+                                x_new[:6 * M])
+    # zero the slots' rows and columns, then write the saved blocks
+    S_new = torch.where(rows[:, None] | rows[None, :],
+                        torch.zeros_like(state.S), state.S)
+    blocks = S_new[:6 * M, :6 * M].view(M, 6, M, 6)
+    ar = torch.arange(M, device=dev)
+    blocks[ar, :, ar, :] = torch.where(
+        take[:, None, None], sd.sr[js].to(S_new.dtype), blocks[ar, :, ar, :])
 
     def put(field, vals):
-        out = field.clone()
-        out[slots] = vals
-        return out
+        shape = (M,) + (1,) * (field.dim() - 1)
+        return torch.where(take.reshape(shape), vals.to(field.dtype), field)
 
     lm_new = replace(
         lm,
-        active=put(lm.active, True),
+        active=lm.active | take,
         lid=put(lm.lid, sd.lid[js]),
-        is_loop=put(lm.is_loop, True),
-        n_predict=put(lm.n_predict, 0),
-        n_match=put(lm.n_match, 0),
-        visible=put(lm.visible, False),
-        matched=put(lm.matched, False),
+        is_loop=lm.is_loop | take,
+        n_predict=put(lm.n_predict, torch.zeros_like(lm.n_predict)),
+        n_match=put(lm.n_match, torch.zeros_like(lm.n_match)),
+        visible=lm.visible & ~take,
+        matched=lm.matched & ~take,
         init_pixel=put(lm.init_pixel, sd.init_pixel[js]),
         init_trans=put(lm.init_trans, sd.init_trans[js]),
         init_theta=put(lm.init_theta, sd.init_theta[js]),
         init_patch=put(lm.init_patch, sd.init_patch[js]),
         xyz=put(lm.xyz, sd.xyz[js]),
     )
-    valid = sd.valid.clone()
-    valid[js] = False
+    valid = sd.valid & ~(readd_mask & (rec_rank < n_pairs))
     return replace(state, x=x_new, S=S_new, lm=lm_new,
                    stored=replace(sd, valid=valid))
 

@@ -25,8 +25,9 @@ sigma-point reuse (SLAM.cpp:2048-2104) followed by a recompose-refactor
 ``update_mode="sequential"`` (reference-faithful): per-landmark 2D gain +
     true rank-2 hyperbolic downdate (ops.linalg.chol_downdate) in the
     reference's slot order, reusing stale sigma deviations exactly as
-    SLAM.cpp:2063-2095 does. A reference mode, not a fast one (see
-    ``_update_sequential`` for its launch count).
+    SLAM.cpp:2063-2095 does: a fixed-trip loop over all slots, each under
+    its matched flag (see ``_update_sequential``). A reference mode, not a
+    fast one.
 
 Unmatched slots get zeroed Z columns plus unit noise (a unit Pad row in the
 batched form) — exact no-ops that keep every shape fixed. P' = S'^T S' is
@@ -263,13 +264,14 @@ def _update_sequential(state: FilterState, cache: PredictCache,
                        cfg: SlamConfig) -> FilterState:
     """Reference-faithful per-landmark loop (SLAM.cpp:2048-2104).
 
-    A Python loop over the matched slots, in slot order. Host reads: one
-    per frame (the matched mask, to pick the slots). Device launches: a
-    hyperbolic rank-2 downdate is 2 sweeps of D rotations at about 25 ops
-    each, so a frame costs about 50 * D * (number matched) launches (tens
-    of thousands at M = 32); with ``downdate_mode="gmw"`` each slot runs
-    two Grams and two D-pivot modified Choleskys instead. This mode exists
-    for parity with the reference, not for large maps."""
+    The JAX package's scan over all M slots in slot order, each slot's
+    update under its matched flag (:func:`control.if_`, the ``lax.cond``):
+    a captured frame holds M conditional nodes and reads nothing back; eager,
+    each gate is one host read. The body writes into the x / S buffers made
+    before the loop. A slot's downdate is one launch of the rotation-sweep
+    kernel on the card (``ops.linalg.chol_downdate``), or with
+    ``downdate_mode="gmw"`` two Grams and two modified Choleskys
+    (``ops.linalg.gmw_chol``, one kernel launch each)."""
     dtype = state.x.dtype
     D = cfg.state_dim
     w = ut_weights(D + 5, cfg)
@@ -280,21 +282,25 @@ def _update_sequential(state: FilterState, cache: PredictCache,
                     - cache.sigma_pix[:, :, :1])                 # (M, 2, 2Na)
     nu_all = lm.match_px - lm.pred                               # (M, 2)
 
-    x, S = state.x, state.S
-    for m in torch.nonzero(lm.matched).flatten().tolist():
+    x, S = state.x.clone(), state.S.clone()
+
+    def body(m: int) -> None:
         pxy = A.T @ dz[m].T                        # (D, 2)
         si = lm.si[m]                              # (2, 2) upper
         # K = Pxy (Si^T Si)^-1  via two triangular solves
         k = tri_solve(si, tri_solve(si, pxy.T, trans=True)).T  # (D, 2)
-        x = x + k @ nu_all[m]
+        x.copy_(x + k @ nu_all[m])
         u = (k @ si.T).T                           # (2, D): U U^T = K Pyy K^T
         if cfg.downdate_mode == "gmw":
             # reference recompose-refactor (SLAM.cpp:2106-2327): one
             # column at a time, Gill-Murray-Wright PD repair
             for col in range(2):
-                S = gmw_chol(gram(S) - torch.outer(u[col], u[col]))
+                S.copy_(gmw_chol(gram(S) - torch.outer(u[col], u[col])))
         else:
-            S = chol_downdate(S, u)
+            S.copy_(chol_downdate(S, u))
+
+    for m in range(cfg.max_landmarks):
+        control.if_(lm.matched[m], lambda m=m: body(m))
     return replace(state, x=x.to(dtype), S=S.to(dtype))
 
 

@@ -2,10 +2,12 @@
 
 Each source under ``csrc/`` (``vision_kernels.cu``: the vision kernels;
 ``scan_kernels.cu``: the stored-table slot policy and the greedy corner
-separation; ``conditional.cu``: IF nodes in a captured CUDA graph, for
-``control.py``) is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, cached under ``.cache/torch_ext/`` at the
-repository root and loaded with ``ctypes``. A library's file name carries a
+separation; ``linalg_kernels.cu``: the rotation sweep and the modified
+Cholesky of the sequential update; ``conditional.cu``: IF nodes in a
+captured CUDA graph, for ``control.py``) is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, cached under
+``.cache/torch_ext/`` at the repository root and loaded with ``ctypes``;
+:func:`launch` calls an entry point on a device's current stream. A library's file name carries a
 hash of its source and flags, so an edited source is rebuilt at its next
 use. Nothing is compiled when this module is imported: the first kernel
 launch (or :func:`build`) does it, from the sources in the checkout only;
@@ -23,7 +25,8 @@ from typing import Dict, List, Optional
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = {name: os.path.join(CSRC_DIR, f"{name}.cu")
-           for name in ("vision_kernels", "scan_kernels", "conditional")}
+           for name in ("vision_kernels", "scan_kernels", "linalg_kernels",
+                        "conditional")}
 BUILD_DIR = os.path.join(os.path.dirname(CSRC_DIR), "..", "..", ".cache",
                          "torch_ext")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -89,3 +92,27 @@ def load(signatures: Dict[str, list],
             f.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def launch(lib: ctypes.CDLL, fn: str, name: str, dev, *args) -> None:
+    """Call entry point ``fn(*args, stream)`` of the loaded library ``lib``
+    on ``dev``'s current stream; raise if the launch failed (``name`` in
+    the message).
+
+    The stream handle comes from ``torch._C._cuda_getCurrentRawStream`` (what
+    compiled PyTorch code uses; it builds no ``Stream`` object, which costs
+    the host more than the launch itself), and the device context is entered
+    only when ``dev`` is not the current device."""
+    import torch
+
+    entry = getattr(lib, fn)
+    cur = torch.cuda.current_device()
+    idx = cur if dev.index is None else dev.index
+    if idx == cur:
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

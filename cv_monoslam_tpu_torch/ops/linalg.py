@@ -13,6 +13,12 @@ semantics. On the card the factorization is cuSOLVER's potrf called with a
 handle of its own per stream (``_potrf_upper``), the call
 ``torch.linalg.cholesky_ex`` makes, so that a captured CUDA graph can hold
 it inside a conditional node; on the CPU it is ``cholesky_ex``.
+
+The two recurrences the JAX package runs as ``lax.scan`` loops, the
+rotation sweep of :func:`chol_update` / :func:`chol_downdate` and the
+modified Cholesky :func:`gmw_chol`, are hand-written CUDA kernels on the
+card (``csrc/linalg_kernels.cu``), bit for bit their plain versions
+(``*_ref``), which CPU tensors take.
 """
 
 from __future__ import annotations
@@ -256,17 +262,10 @@ def tri_inv_upper(r: torch.Tensor, base: int = 32) -> torch.Tensor:
     return torch.cat([top, bot], dim=0)
 
 
-def gmw_chol(a: torch.Tensor) -> torch.Tensor:
-    """Gill-Murray-Wright modified Cholesky: upper-triangular S with
-    S^T S = A + E, E a minimal diagonal making A PD — the reference's
-    forced-PD refactorization (SLAM.cpp:2197-2327), as a right-looking
-    LDL^T loop (one rank-1 trailing update per pivot).
-
-    The pivot floors (delta, beta^2) are the JAX package's, so the
-    reference-faithful sequential update (downdate_mode="gmw") reproduces
-    the reference's covariance repair. A Python loop of n pivots, about ten
-    device ops each, no host read.
-    """
+def _gmw_floors(a: torch.Tensor) -> torch.Tensor:
+    """The pivot floors (delta, beta^2) of :func:`gmw_chol` for ``a``, a (2,)
+    tensor on ``a``'s device (the JAX package's, by the same torch ops on
+    both routes)."""
     n = a.shape[0]
     eps = torch.finfo(a.dtype).eps
     diag = torch.diagonal(a)
@@ -277,6 +276,14 @@ def gmw_chol(a: torch.Tensor) -> torch.Tensor:
     delta = eps * torch.clamp(gamma + xi, min=1.0)
     beta2 = torch.clamp(torch.maximum(
         gamma, xi / max(float(n * n - 1.0) ** 0.5, 1.0)), min=eps)
+    return torch.stack([delta, beta2])
+
+
+def gmw_chol_ref(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gmw_chol`: a Python loop of n pivots, about
+    ten device ops each, no host read."""
+    n = a.shape[0]
+    delta, beta2 = _gmw_floors(a)
     idx = torch.arange(n, device=a.device)
 
     aw = a
@@ -345,11 +352,98 @@ def _rank1_rotate(r: torch.Tensor, u: torch.Tensor, downdate: bool,
     return r
 
 
-def chol_update(r: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Rank-k sqrt update: R' with R'^T R' = R^T R + U^T U, U (k, n)."""
+def chol_update_ref(r: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`chol_update`: k sweeps of n rotations."""
     for uk in torch.atleast_2d(u):
         r = _rank1_rotate(r, uk, downdate=False, eps=0.0)
     return r
+
+
+def chol_downdate_ref(r: torch.Tensor, u: torch.Tensor,
+                      eps: float = 1e-12) -> torch.Tensor:
+    """Plain version of :func:`chol_downdate`: k sweeps of n rotations."""
+    for uk in torch.atleast_2d(u):
+        r = _rank1_rotate(r, uk, downdate=True, eps=eps)
+    return r
+
+
+# ---------------------------------------------------------------------------
+# the two recurrences as kernels (csrc/linalg_kernels.cu)
+# ---------------------------------------------------------------------------
+
+#: up to this n one block runs :func:`gmw_chol`'s pivots; above, a
+#: cooperative grid of one block per SM (``linalg_kernels.cu``)
+GMW_ONE_BLOCK_MAX_N = 256
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "cvms_rank_rotate": [_I, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P,
+                         _P],
+    "cvms_gmw_chol": [_I, _P, _P, _P, _I, _I, _P, _P],
+}
+
+
+def _check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take: float32 or float64, every tensor on one
+    device in one dtype (checked by the wrappers before a launch)."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: the kernel takes float32 or float64, got "
+                        f"{dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise TypeError(f"{name}: wants {dtype} on {dev}, got "
+                            f"{t.dtype} on {t.device}")
+
+
+def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
+    """Entry point ``fn(*args, stream)`` of ``linalg_kernels`` on ``dev``'s
+    current stream (:func:`_build.launch`)."""
+    from . import _build
+
+    _build.launch(_build.load(_SIGNATURES, "linalg_kernels"), fn, name, dev,
+                  *args)
+
+
+def rank_rotate(r: torch.Tensor, u: torch.Tensor, downdate: bool,
+                eps: float = 0.0) -> torch.Tensor:
+    """R' with R'^T R' = R^T R + U^T U (``downdate`` False) or R^T R - U^T U
+    (True; a column whose downdate would lose positive definiteness, by
+    ``eps``, is skipped). ``r`` (n, n), ``u`` (n,) or (k, n). On CUDA
+    tensors one launch of ``csrc/linalg_kernels.cu::rank_rotate_kernel``
+    (all k rows of U), counted on the device and bit for bit the plain
+    version; on CPU tensors the plain version, :func:`chol_update_ref` /
+    :func:`chol_downdate_ref`."""
+    from . import vision
+
+    u2 = torch.atleast_2d(u)
+    n = r.shape[0]
+    if r.shape != (n, n) or u2.dim() != 2 or u2.shape[1] != n:
+        raise ValueError(f"rank_rotate: shapes r {tuple(r.shape)}, u "
+                         f"{tuple(u.shape)}")
+    if r.device.type == "cpu":
+        return (chol_downdate_ref(r, u, eps) if downdate
+                else chol_update_ref(r, u))
+    if r.device.type != "cuda":
+        raise ValueError(f"rank_rotate: no kernel for {r.device}")
+    _check_kernel_args("rank_rotate", r, u2)
+    r, u2 = r.contiguous(), u2.contiguous()
+    out = torch.empty_like(r)
+    if n and u2.shape[0]:
+        dev = r.device
+        _launch("rank_rotate", "cvms_rank_rotate", dev,
+                int(r.dtype == torch.float64), r.data_ptr(), u2.data_ptr(),
+                out.data_ptr(), n, u2.shape[0], int(downdate), float(eps),
+                vision._device_counter(dev, "rank_rotate").data_ptr())
+    else:
+        out.copy_(r)
+    return out
+
+
+def chol_update(r: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Rank-k sqrt update: R' with R'^T R' = R^T R + U^T U, U (k, n): the
+    rotation sweep of :func:`rank_rotate` (one kernel launch on the card)."""
+    return rank_rotate(r, u, downdate=False)
 
 
 def chol_downdate(r: torch.Tensor, u: torch.Tensor,
@@ -358,7 +452,45 @@ def chol_downdate(r: torch.Tensor, u: torch.Tensor,
 
     The true hyperbolic-rotation downdate the reference approximates by
     recompose-refactor (SLAM.cpp:2106-2155); PD loss is clamped, not fatal.
+    The rotation sweep of :func:`rank_rotate` (one kernel launch on the
+    card).
     """
-    for uk in torch.atleast_2d(u):
-        r = _rank1_rotate(r, uk, downdate=True, eps=eps)
-    return r
+    return rank_rotate(r, u, downdate=True, eps=eps)
+
+
+def gmw_chol(a: torch.Tensor) -> torch.Tensor:
+    """Gill-Murray-Wright modified Cholesky: upper-triangular S with
+    S^T S = A + E, E a minimal diagonal making A PD — the reference's
+    forced-PD refactorization (SLAM.cpp:2197-2327), as a right-looking
+    LDL^T loop (one rank-1 trailing update per pivot).
+
+    The pivot floors (delta, beta^2) are the JAX package's, so the
+    reference-faithful sequential update (downdate_mode="gmw") reproduces
+    the reference's covariance repair. On CUDA tensors the floors by torch
+    ops and one launch of ``csrc/linalg_kernels.cu``'s pivot loop (one
+    block up to :data:`GMW_ONE_BLOCK_MAX_N`, a cooperative grid above),
+    counted on the device and bit for bit :func:`gmw_chol_ref`; on CPU
+    tensors :func:`gmw_chol_ref`.
+    """
+    from . import vision
+
+    n = a.shape[0]
+    if a.shape != (n, n):
+        raise ValueError(f"gmw_chol: a square matrix, got {tuple(a.shape)}")
+    if a.device.type == "cpu":
+        return gmw_chol_ref(a)
+    if a.device.type != "cuda":
+        raise ValueError(f"gmw_chol: no kernel for {a.device}")
+    _check_kernel_args("gmw_chol", a)
+    s = torch.empty_like(a, memory_format=torch.contiguous_format)
+    if n:
+        dev = a.device
+        floors = _gmw_floors(a)
+        # the kernel's working matrix: A transposed, so a pivot's column is
+        # a row (overwritten)
+        w = a.T.clone(memory_format=torch.contiguous_format)
+        _launch("gmw_chol", "cvms_gmw_chol", dev,
+                int(a.dtype == torch.float64), w.data_ptr(), s.data_ptr(),
+                floors.data_ptr(), n, int(n > GMW_ONE_BLOCK_MAX_N),
+                vision._device_counter(dev, "gmw_chol").data_ptr())
+    return s

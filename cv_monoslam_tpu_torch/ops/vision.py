@@ -78,23 +78,8 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 def _launch(name: str, fn: str, dev: torch.device, *args,
             lib: str = "vision_kernels") -> None:
     """Call entry point ``fn(*args, stream)`` of library ``lib`` on
-    ``dev``'s current stream.
-
-    The stream handle comes from ``torch._C._cuda_getCurrentRawStream`` (what
-    compiled PyTorch code uses; it builds no ``Stream`` object, which costs
-    the host more than the launch itself), and the device context is entered
-    only when ``dev`` is not the current device."""
-    entry = getattr(_lib(lib), fn)
-    cur = torch.cuda.current_device()
-    idx = cur if dev.index is None else dev.index
-    if idx == cur:
-        err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(idx):
-            err = entry(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+    ``dev``'s current stream (:func:`_build.launch`)."""
+    _build.launch(_lib(lib), fn, name, dev, *args)
 
 
 def empty_launch(dev: torch.device) -> None:
@@ -509,9 +494,10 @@ def warp_ncc_score_map_with_templates(
 # Launch counters on the device
 # ---------------------------------------------------------------------------
 
-#: every kernel of this module, in the order of its slot in the counters
+#: every kernel of this module and of ``linalg.py`` (``rank_rotate``,
+#: ``gmw_chol``), in the order of its slot in the counters
 KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear",
-           "store_slots", "gftt_greedy_nms")
+           "store_slots", "gftt_greedy_nms", "rank_rotate", "gmw_chol")
 
 
 def _counts(dev) -> torch.Tensor:

@@ -313,15 +313,21 @@ def test_host_gated_chunks_follow_jax_session():
                                 dict(IMPLICIT_KW, dtype="float32")],
                          ids=["config1", "implicit"])
 def test_dispatch_chunk_makes_no_host_read(kw):
-    """After one chunk (which builds the per-device constants), a dispatch
-    through both detect variants runs under the guard: every gate goes
-    through ``control`` and every constant comes from its cache."""
+    """After one chunk and a warm-up frame (both sides of every gate, as
+    before a capture: it builds the per-device constants of branches the
+    chunk did not take), a dispatch through both detect variants runs
+    under the guard: every gate goes through ``control`` and every
+    constant comes from its cache."""
     name, extra = (("bench3_grid", dict(min_step_xy=0.005))
                    if kw.get("sigma_mode") == "implicit"
                    else ("bench1_arc", {}))
     seq, track, _, _ = tfix.load(name, **extra)
     ts = SlamSession(SlamConfig(**kw), seq, track, device="cpu")
     ts.step_chunk(4)
+    imgs = torch.from_numpy(ts._stack_window(ts.counter, 1))
+    with control.warmup():          # thrown away, as the capture's warm-up
+        ts._frames(control.tree_map(torch.clone, ts.state), imgs,
+                   ts._odo[ts.counter - 1:ts.counter + 1], True)
     ts.detect_host_gate = True
     for matched in (0, 10 ** 6):              # a detect and a tracking chunk
         ts._last_matched = matched
