@@ -5,8 +5,9 @@
     python3 chip_smoke.py --profile  # the smoke, then a profiled chunk
     python3 chip_smoke.py --profile --config 3   # ... of config 3
     python3 chip_smoke.py --profile --config 4   # ... of config 4
-    python3 chip_smoke.py --baseline DIR   # ... the recurrence kernels
-                                           # timed against DIR's
+    python3 chip_smoke.py --baseline DIR   # ... the recurrence and linalg
+                                           # kernels timed against DIR's,
+                                           # R3 with DIR's gmw_chol
 
 Phases, each of which raises on a failed check (the script then exits
 non-zero and prints no result):
@@ -66,11 +67,19 @@ non-zero and prints no result):
    ``csrc/linalg_kernels.cu``, ``rank_rotate`` (the rotation sweep of
    ``chol_update`` / ``chol_downdate``) and ``gmw_chol`` (the modified
    Cholesky), equal to their plain versions exactly (NaN where NaN) on
-   seeded inputs in float32 and float64 (n = 16, 100, 196, 580, k = 1-3,
-   downdates that lose positive definiteness, zero entries of U, a zero
-   U; indefinite, zero and non-finite A; one set each at n = 3460) and on
-   arguments kept from (d)'s eager runs, and their times against bound and
-   plain version; (b) config 1 through ``step()``, 48 frames by the graph
+   seeded inputs in float32 and float64 (n = 1, 2, 16, 100, 196, 580, k =
+   1-3 and 5, downdates that lose positive definiteness, zero entries of
+   U, a zero U; indefinite, zero and non-finite A; ``gmw_chol``'s grid
+   route at n = 196 with its panel in shared memory and in the workspace,
+   ``rank_rotate``'s wide kernel at n = 100 and 196; one set each at n =
+   3460, and at n = 4100 / 3700 where the launchers take those routes
+   themselves) and on arguments kept from (d)'s eager
+   runs, ``gmw_chol``'s in-kernel floors equal to ``_gmw_floors`` on the
+   card on every seeded set; their times (with ``--baseline DIR``, in
+   turns with that checkout's) against the byte / operation bound, the
+   latency bound (one thread running the step's dependent arithmetic
+   n + k - 1 times, the wavefront's intervals, or n times), the plain
+   version and the library (``cholesky_ex`` where no floor binds); (b) config 1 through ``step()``, 48 frames by the graph
    and the eager route from one state (a chunk replayed among the steps):
    every discrete result equal, no synchronizing call and one event wait
    in each step replay, the fused kernel once per frame, then frames/s of
@@ -80,7 +89,9 @@ non-zero and prints no result):
    :data:`MODES` on one config-1 window by the chunk graph and eagerly:
    every discrete result equal, no synchronizing call in the dispatch,
    each linalg kernel launched its count per matched slot times the
-   matched slots (read on the device), capture seconds and pools;
+   matched slots (read on the device), capture seconds and pools; the
+   ``gmw`` mode also at max_landmarks=64 (D = 388: the grid route, a
+   cooperative launch captured in a conditional body);
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
    timed after a warm-up chunk; checks the launch counters (the fused
@@ -201,7 +212,10 @@ non-zero and prints no result):
    frames: identical match sets on at least 25, mean Jaccard at least 0.55,
    ``gmw_chol`` launched by the step graphs twice per matched slot the
    eager run of the same frames updates (when their match sets agree),
-   frames/s by the step graphs and by the eager route (printed).
+   frames/s by the step graphs and by the eager route (printed); with
+   ``--baseline DIR`` the same 50 frames by step graphs four more times,
+   DIR's ``gmw_chol`` and this tree's in turns, frames/s of each and
+   their match sets equal to the first run's.
    Each value is printed beside the CPU's (``PARITY_CPU``);
 12. one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -888,13 +902,15 @@ def read_counters() -> dict:
 
 
 def launches(counts: dict) -> dict:
-    return {name: counts[name] for name in KERNELS + SCAN_KERNELS}
+    return {name: counts[name]
+            for name in KERNELS + SCAN_KERNELS + LINALG_KERNELS}
 
 
 def launch_problems(counts: dict, expected: int, what: str) -> list:
-    """The fused kernel once per tracked frame, the standalone kernels and
-    the plain template normalization never."""
-    want = dict.fromkeys(KERNELS, 0)
+    """The fused kernel once per tracked frame, the standalone kernels, the
+    linalg kernels (only the ``sequential`` update modes run them) and the
+    plain template normalization never."""
+    want = dict.fromkeys(KERNELS + LINALG_KERNELS, 0)
     want["warp_ncc_score_map"] = expected
     problems = [f"{name} launched {counts[name]} times for {expected} "
                 f"tracked frames of {what} (wanted {n})"
@@ -1052,9 +1068,10 @@ def patched(module, name: str, value):
 
 
 def load_baseline(root: str):
-    """The ``ops/vision.py`` of another checkout of the port at ``root``,
-    with its own ``_build`` and ``control``, under the package name
-    ``baseline_ops``: its recurrence kernels are built from that
+    """The ``ops/vision.py`` and ``ops/linalg.py`` of another checkout of
+    the port at ``root``, with its own ``_build`` and ``control``, under
+    the package name ``baseline_ops`` (``.vision``, ``.linalg`` of the
+    namespace returned): its recurrence kernels are built from that
     checkout's sources into that checkout's ``.cache/``."""
     import importlib
     import types
@@ -1063,9 +1080,10 @@ def load_baseline(root: str):
     pkg.__path__ = [os.path.join(os.path.abspath(root),
                                  "cv_monoslam_tpu_torch", "ops")]
     sys.modules["baseline_ops"] = pkg
-    mod = importlib.import_module("baseline_ops.vision")
-    mod._build.build(["scan_kernels"])
-    return mod
+    vision = importlib.import_module("baseline_ops.vision")
+    linalg = importlib.import_module("baseline_ops.linalg")
+    vision._build.build(["scan_kernels", "linalg_kernels"])
+    return types.SimpleNamespace(vision=vision, linalg=linalg)
 
 
 def scan_variants(sets: list, kind: str, rng, n: int = 4) -> list:
@@ -1145,8 +1163,8 @@ def scan_times(dev, floor: float, runs: dict, baseline=None) -> dict:
             else ("this",)
         runs_ms = {"this": [], "baseline": []}
         for who in turns:
-            t, host = time_ms(call(vision if who == "this" else baseline),
-                              args)
+            t, host = time_ms(
+                call(vision if who == "this" else baseline.vision), args)
             runs_ms[who].append(t)
             if who == "this" and len(runs_ms["this"]) == 1:
                 k_ms, host_ms = t, host
@@ -1530,11 +1548,16 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
 #: the kernels of csrc/linalg_kernels.cu
 LINALG_KERNELS = ("rank_rotate", "gmw_chol")
 #: phase 3c (d): the update / QR modes at the config-1 widths, and each
-#: linalg kernel's launches per matched slot of a frame in that mode
+#: linalg kernel's launches per matched slot of a frame in that mode;
+#: ``sequential_gmw_m64`` at max_landmarks=64 (D = 388: ``gmw_chol``'s grid
+#: route, a cooperative launch, in a conditional body)
 MODES = (
     ("sequential", dict(update_mode="sequential"),
      dict(rank_rotate=1, gmw_chol=0)),
     ("sequential_gmw", dict(update_mode="sequential", downdate_mode="gmw"),
+     dict(rank_rotate=0, gmw_chol=2)),
+    ("sequential_gmw_m64", dict(update_mode="sequential",
+                                downdate_mode="gmw", max_landmarks=64),
      dict(rank_rotate=0, gmw_chol=2)),
     ("batched_householder", dict(update_mode="batched", qr_mode="householder"),
      dict(rank_rotate=0, gmw_chol=0)),
@@ -1595,19 +1618,21 @@ def exact_diff(got: torch.Tensor, want: torch.Tensor) -> Tuple[int, float]:
     return int((~same).sum()), float(diff.max()) if diff.numel() else 0.0
 
 
-def linalg_call(name: str, args, plain: bool = False):
+def linalg_call(name: str, args, plain: bool = False, mod=None):
     """One call of kernel ``name`` (or its plain version) on ``args``:
-    ``rank_rotate`` (r, u, downdate), ``gmw_chol`` (a,)."""
+    ``rank_rotate`` (r, u, downdate), ``gmw_chol`` (a,); ``mod``: another
+    checkout's ``ops/linalg.py`` (:func:`load_baseline`)."""
     from cv_monoslam_tpu_torch.ops import linalg
 
+    mod = mod or linalg
     if name == "rank_rotate":
         r, u, downdate = args
         if plain:
             return (linalg.chol_downdate_ref(r, u) if downdate
                     else linalg.chol_update_ref(r, u))
-        return linalg.rank_rotate(r, u, downdate,
-                                  eps=1e-12 if downdate else 0.0)
-    return (linalg.gmw_chol_ref if plain else linalg.gmw_chol)(*args)
+        return mod.rank_rotate(r, u, downdate,
+                               eps=1e-12 if downdate else 0.0)
+    return (linalg.gmw_chol_ref if plain else mod.gmw_chol)(*args)
 
 
 def check_linalg(name: str, args, label: str, errs: dict) -> float:
@@ -1629,6 +1654,51 @@ def check_linalg(name: str, args, label: str, errs: dict) -> float:
     return plain_s
 
 
+def check_gmw_route(a: torch.Tensor, label: str, errs: dict,
+                    **route) -> int:
+    """``gmw_chol``'s kernel by the route ``route`` picks
+    (``linalg._gmw_launch``'s ``route``: 1 the grid, its panel in shared
+    memory, 2 in the workspace; default: the launcher's) with its own
+    floors: S against the plain version and the floors (delta, beta^2)
+    against ``_gmw_floors`` on the card, both exactly. Returns the floors'
+    differing entries (0)."""
+    from cv_monoslam_tpu_torch.ops import linalg
+
+    s = torch.empty_like(a)
+    fl = torch.empty(2, dtype=a.dtype, device=a.device)
+    linalg._gmw_launch(a, s, fl, **route)
+    bad, md = exact_diff(s, linalg.gmw_chol_ref(a))
+    fbad, _ = exact_diff(fl, linalg._gmw_floors(a))
+    errs["gmw_chol"] = max(errs.get("gmw_chol", 0.0), md)
+    if route:
+        log(f"[check] gmw_chol {label} {route}: {bad} entries differ from "
+            f"the plain version, floors {fbad} of 2")
+    if bad or fbad:
+        raise AssertionError(f"gmw_chol {label} {route}: {bad} entries, "
+                             f"floors {fl.tolist()} against "
+                             f"{linalg._gmw_floors(a).tolist()}")
+    return fbad
+
+
+def check_rotate_wide(r: torch.Tensor, u: torch.Tensor, downdate: bool,
+                      label: str, errs: dict) -> None:
+    """``rank_rotate``'s wide kernel (one row of U a launch, the launcher's
+    route above n = 4096) forced at this n (``linalg._rotate_launch``'s
+    ``route=1``): equal to the plain version exactly."""
+    from cv_monoslam_tpu_torch.ops import linalg
+
+    eps = 1e-12 if downdate else 0.0
+    got = linalg._rotate_launch(r, u, downdate, eps, route=1)
+    want = linalg_call("rank_rotate", (r, u, downdate), plain=True)
+    bad, md = exact_diff(got, want)
+    errs["rank_rotate"] = max(errs["rank_rotate"], md)
+    log(f"[check] rank_rotate {label} by the wide kernel: {bad} entries "
+        f"differ from the plain version")
+    if bad:
+        raise AssertionError(f"rank_rotate wide kernel {label}: {bad} "
+                             f"entries differ")
+
+
 def rotate_bound(n: int, k: int, itemsize: int) -> dict:
     """R in, R' out, U in; operations: six per column right of a pivot
     (four products, two sums) and ten per pivot, for each row of U. The
@@ -1640,26 +1710,35 @@ def rotate_bound(n: int, k: int, itemsize: int) -> dict:
 
 def gmw_bound(n: int, itemsize: int) -> dict:
     """A in, S out; operations: three per entry of each pivot's trailing
-    block, two per entry of S, a few per pivot (the rate as
-    :func:`rotate_bound`'s)."""
+    lower triangle (rows i > j, columns j < l <= i: the entries the
+    function reads again), two per entry of S, a few per pivot (the rate
+    as :func:`rotate_bound`'s)."""
     return _bound(2 * n * n * itemsize,
-                  sum(3 * (n - j - 1) ** 2 for j in range(n))
+                  sum(3 * (n - j - 1) * (n - j) // 2 for j in range(n))
                   + 2 * n * n + 8 * n)
 
 
 def seeded_linalg_checks(dev, errs: dict) -> dict:
     """(a) on seeded inputs, float32 and float64: ``rank_rotate`` both ways
-    at n = 16, 100, 196, 580 and k = 1, 2, 3, its PD-loss, zero-entry and
-    all-zero U at n = 196 and 580; ``gmw_chol`` at the same n on every
-    case of :func:`gmw_inputs` (one block up to n = 256, the cooperative
-    grid above); one set of each at n = 3460 (config 3's D), where the
-    plain loops take seconds. Returns the plain versions' seconds there."""
+    at n = 16, 100, 196, 580 and k = 1, 2, 3 (k = 5 at n = 100: a wavefront
+    of four rows, then one), its PD-loss, zero-entry and all-zero U at n =
+    196 and 580; ``gmw_chol`` at n = 1, 2 and the same n on every case of
+    :func:`gmw_inputs` (one block up to n = 338 / 238, the panel-deferred
+    grid above), each set's in-kernel floors against ``_gmw_floors`` on the
+    card; the grid route at n = 196 too, its panel in shared memory and in
+    the workspace, and ``rank_rotate``'s wide kernel at n = 100 and 196;
+    one set of each at n = 3460 (config 3's D), where the plain loops take
+    seconds, and at the widths where the launchers leave their fast routes:
+    ``rank_rotate`` at n = 4100 float32 (the wide kernel), ``gmw_chol`` at
+    n = 3700 float64 (the grid's panel in the workspace). Returns the plain
+    versions' seconds at n = 3460."""
     rng = np.random.default_rng(12)
     plain_s = {}
+    floor_sets = 0
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype).split(".")[1]
-        for n in (16, 100, 196, 580):
-            for k in (1, 2, 3):
+        for n in (1, 2, 16, 100, 196, 580):
+            for k in (1, 2, 3) if n > 2 else ():
                 for downdate in (True, False):
                     r, u = rotate_inputs(n, k, rng, dev, dtype)
                     check_linalg("rank_rotate", (r, u, downdate),
@@ -1670,29 +1749,88 @@ def seeded_linalg_checks(dev, errs: dict) -> dict:
                     r, u = rotate_inputs(n, 2, rng, dev, dtype, case)
                     check_linalg("rank_rotate", (r, u, True),
                                  f"{dt} n={n} k=2 downdate {case}", errs)
+            if n == 100:
+                r, u = rotate_inputs(n, 5, rng, dev, dtype, "zeros_in_u")
+                check_linalg("rank_rotate", (r, u, True),
+                             f"{dt} n={n} k=5 downdate zeros_in_u", errs)
             for case in ("spd", "gram_minus", "indefinite", "zero",
                          "nonfinite"):
-                check_linalg("gmw_chol", gmw_inputs(n, rng, dev, dtype, case),
-                             f"{dt} n={n} {case}", errs)
+                a = gmw_inputs(n, rng, dev, dtype, case)
+                check_linalg("gmw_chol", a, f"{dt} n={n} {case}", errs)
+                check_gmw_route(a[0], f"{dt} n={n} {case}", errs)
+                floor_sets += 1
+                if n == 196:
+                    for route in (1, 2):
+                        check_gmw_route(a[0], f"{dt} n={n} {case}", errs,
+                                        route=route)
+            if n in (100, 196):
+                for case in ("random", "pd_loss", "zeros_in_u"):
+                    r, u = rotate_inputs(n, 3, rng, dev, dtype, case)
+                    for downdate in (True, False):
+                        check_rotate_wide(
+                            r, u, downdate, f"{dt} n={n} k=3 {case} "
+                            f"{'down' if downdate else 'up'}date", errs)
         n = 3460
         r, u = rotate_inputs(n, 1, rng, dev, dtype, "pd_loss")
         plain_s[("rank_rotate", dt)] = check_linalg(
             "rank_rotate", (r, u, True), f"{dt} n={n} k=1 downdate pd_loss",
             errs)
+        a = gmw_inputs(n, rng, dev, dtype, "gram_minus")
         plain_s[("gmw_chol", dt)] = check_linalg(
-            "gmw_chol", gmw_inputs(n, rng, dev, dtype, "gram_minus"),
-            f"{dt} n={n} gram_minus", errs)
+            "gmw_chol", a, f"{dt} n={n} gram_minus", errs)
+        check_gmw_route(a[0], f"{dt} n={n} gram_minus", errs)
+        floor_sets += 1
+        if dtype == torch.float32:
+            r, u = rotate_inputs(4100, 2, rng, dev, dtype, "pd_loss")
+            check_linalg("rank_rotate", (r, u, True),
+                         f"{dt} n=4100 k=2 downdate pd_loss (wide kernel)",
+                         errs)
+        else:
+            a = gmw_inputs(3700, rng, dev, dtype, "gram_minus")
+            check_linalg("gmw_chol", a, f"{dt} n=3700 gram_minus (panel "
+                         f"in the workspace)", errs)
+            check_gmw_route(a[0], f"{dt} n=3700 gram_minus", errs)
+            floor_sets += 1
+    log(f"[check] gmw_chol floors: the kernel's (delta, beta^2) equal "
+        f"_gmw_floors on the card on all {floor_sets} seeded sets")
     return plain_s
 
 
-def linalg_times(dev, floor: float, plain_large: dict) -> dict:
-    """Kernel time (CUDA events behind a device backlog, :func:`time_ms`,
-    four distinct input sets) against the bound and the plain version, at
-    the shapes of the main paths (``rank_rotate`` n = 196, k = 2, float32:
-    config 1 sequential; ``gmw_chol`` n = 196 float32: config 1 gmw, n =
-    100 float64: faithful mode), and at n = 580 and 3460 by the host clock
-    over three synchronized calls (each takes milliseconds); dependent
-    steps (k n rotations, n pivots) and microseconds per step."""
+def chain_latency_ms(name: str, steps: int, dtype) -> float:
+    """The latency bound: one thread running ``steps`` of the recurrence's
+    dependent step arithmetic (``cvms_chain_latency``), CUDA events."""
+    from cv_monoslam_tpu_torch.ops import _build, linalg
+
+    dev = torch.device("cuda:0")
+    lib = _build.load(linalg._SIGNATURES, "linalg_kernels")
+    # r, u, ua, rb, eps, a0, a1, beta2, delta; the result
+    io = torch.tensor([2.0, 0.3, 0.25, 0.125, 1e-12, 1.0, 0.5, 1.0, 1e-12,
+                       0.0], dtype=dtype, device=dev)
+    f64, kind = int(dtype == torch.float64), int(name == "gmw_chol")
+    return time_ms(lambda: _build.launch(
+        lib, "cvms_chain_latency", "chain latency", dev, f64, kind, steps,
+        io.data_ptr()), [()])[0]
+
+
+def linalg_times(dev, floor: float, plain_large: dict,
+                 baseline=None) -> dict:
+    """Kernel time against the bounds, the plain version and the library
+    at the shapes of the main paths (``rank_rotate`` n = 196, k = 2,
+    float32: config 1 sequential; ``gmw_chol`` n = 196 float32: config 1
+    gmw, n = 100 float64: faithful mode) and at n = 580 and 3460: CUDA
+    events behind a device backlog (:func:`time_ms`, four distinct input
+    sets) up to n = 580, the host clock over three synchronized calls at
+    3460. With ``baseline`` (:func:`load_baseline`) that checkout's
+    kernels and this tree's in turns (baseline, this, this, baseline).
+    Beside each: dependent steps (the wavefront's n + k - 1 intervals, n
+    pivots) and µs per step above the launch floor; the latency bound
+    (:func:`chain_latency_ms`, those steps of one thread) and the kernel's
+    time over it;
+    ``gmw_chol``'s library call, ``torch.linalg.cholesky_ex(upper=True)``
+    on ``spd`` sets where no floor binds (the same function there; the
+    kernel timed on the same sets, max |S - R| / max |R| printed);
+    ``rank_rotate``'s ``cholesky_ex`` of R^T R - U^T U, not the same
+    function (no PD-loss skip)."""
     rng = np.random.default_rng(13)
     out = {}
     shapes = (("rank_rotate", 196, 2, torch.float32),
@@ -1703,38 +1841,78 @@ def linalg_times(dev, floor: float, plain_large: dict) -> dict:
               ("gmw_chol", 100, 0, torch.float64),
               ("gmw_chol", 580, 0, torch.float32),
               ("gmw_chol", 3460, 0, torch.float32))
+    chol = lambda a: torch.linalg.cholesky_ex(a, upper=True)
     for name, n, k, dtype in shapes:
         dt = str(dtype).split(".")[1]
         if name == "rank_rotate":
             sets = [rotate_inputs(n, k, rng, dev, dtype) + (True,)
                     for _ in range(4)]
-            b, steps = rotate_bound(n, k, dtype.itemsize), k * n
+            b, steps = rotate_bound(n, k, dtype.itemsize), n + k - 1
         else:
             sets = [gmw_inputs(n, rng, dev, dtype, "gram_minus")
                     for _ in range(4)]
             b, steps = gmw_bound(n, dtype.itemsize), n
-        if n <= 196:
-            ms, host = time_ms(lambda *a: linalg_call(name, a), sets)
-        else:                       # milliseconds a call: three suffice
-            ms, host = plain_ms(lambda *a: linalg_call(name, a),
-                                sets[0]), None
+
+        def timed(fn, arg_sets):
+            if n <= 580:
+                return time_ms(fn, arg_sets)
+            return plain_ms(fn, arg_sets[0]), None  # ms a call: 3 suffice
+
+        turns = ("baseline", "this", "this", "baseline") if baseline \
+            else ("this",)
+        runs = {"this": [], "baseline": []}
+        for who in turns:
+            mod = baseline.linalg if who == "baseline" else None
+            t, h = timed(lambda *a: linalg_call(name, a, mod=mod), sets)
+            runs[who].append(t)
+            if who == "this" and len(runs["this"]) == 1:
+                ms, host = t, h
         if n == 3460:
             pl = plain_large[(name, dt)] * 1e3
         else:
             pl = plain_ms(lambda *a: linalg_call(name, a, plain=True),
                           sets[0])
+        lat = chain_latency_ms(name, steps, dtype)
+        extra = {}
+        if name == "gmw_chol":
+            spd = [gmw_inputs(n, rng, dev, dtype, "spd") for _ in range(4)]
+            lib = timed(chol, spd)[0]
+            ms_spd = timed(lambda a: linalg_call(name, (a,)), spd)[0]
+            r_lib = chol(spd[0][0])[0]
+            rel = float((linalg_call(name, spd[0]) - r_lib).abs().max()
+                        / r_lib.abs().max())
+            extra = dict(ms_spd=ms_spd, library_rel_diff=rel)
+            lib_text = (f"library cholesky_ex {lib:.4f} ms on spd sets "
+                        f"(kernel {ms_spd:.4f} ms there, max |S - R| / "
+                        f"max |R| {rel:.2e})")
+        else:
+            grams = [(r.T @ r - u.T @ u,) for r, u, _ in sets]
+            extra = dict(chol_gram_ms=timed(chol, grams)[0])
+            lib = None
+            lib_text = (f"cholesky_ex of R^T R - U^T U "
+                        f"{extra['chol_gram_ms']:.4f} ms (not the same "
+                        f"function: no PD-loss skip)")
         key = f"{name}_n{n}_{dt}"
+        step = "intervals" if name == "rank_rotate" else "pivots"
         out[key] = dict(ms=ms, host_ms=host, plain_ms=pl, steps=steps,
                         us_per_step=(ms - floor) / steps * 1e3,
                         shape=f"n={n}" + (f", k={k}" if k else "") + f", {dt}",
-                        library_ms=None, **b)
+                        library_ms=lib, latency_ms=lat,
+                        ms_runs=runs["this"], baseline_ms=runs["baseline"],
+                        **extra, **b)
         log(f"[time] {name} n={n}{f' k={k}' if k else ''} {dt}: kernel "
             f"{ms:.4f} ms "
-            f"{f'(host {host:.4f})' if host else '(host clock, 3 calls)'}, "
-            f"plain {pl:.2f} ms, bound "
-            f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), {steps} "
-            f"dependent steps, {out[key]['us_per_step']:.3f} us per step "
-            f"above the launch floor {floor:.4f} ms")
+            f"{f'(host {host:.4f})' if host else '(host clock, 3 calls)'}"
+            f", runs {[round(x, 4) for x in runs['this']]}"
+            + (f", baseline {[round(x, 4) for x in runs['baseline']]} ms "
+               f"(turns: baseline, this, this, baseline; this "
+               f"{min(runs['baseline']) / max(runs['this']):.1f}x faster "
+               f"at least)" if baseline else "")
+            + f"; plain {pl:.2f} ms; bound {b['bound_ms'] * 1e3:.3f} us "
+            f"({b['bound_by']}); latency bound {lat:.4f} ms ({steps} "
+            f"dependent {step} of one thread), kernel {ms / lat:.2f}x it; "
+            f"{out[key]['us_per_step']:.3f} us per {step[:-1]} above the "
+            f"launch floor {floor:.4f} ms; {lib_text}")
     return out
 
 
@@ -1992,7 +2170,7 @@ def step_graph_modes(dev, errs: dict) -> dict:
     seq, track, _, _ = fixtures.load("bench1_arc")
     out, kept, problems = {}, [], []
     for name, kw, per_slot in MODES:
-        sess = SlamSession(SlamConfig(**CONFIG1, **kw), seq, track,
+        sess = SlamSession(SlamConfig(**{**CONFIG1, **kw}), seq, track,
                            device=dev)
         # the first window, where the sequential modes still match most
         # landmarks (in float32 they lose most matches from frame 5 on)
@@ -2000,10 +2178,11 @@ def step_graph_modes(dev, errs: dict) -> dict:
         sess.step_chunk(8)                      # captures (8, detect)
         sess.state, sess.counter = s0, c0
         sess._last_matched = 0
-        matched = []
+        matched, kept_mode = [], []
         r, _ = graph_vs_eager(
             sess, 8, name,
-            eager_ctx=lambda: recorded_updates(kept, matched))
+            eager_ctx=lambda: recorded_updates(kept_mode, matched))
+        kept += kept_mode
         counts = r["launches"]
         want = {k: sum(matched) * per_slot[k] for k in LINALG_KERNELS}
         got = {k: counts[k] for k in LINALG_KERNELS}
@@ -2034,7 +2213,8 @@ def step_graph_modes(dev, errs: dict) -> dict:
     return out
 
 
-def phase_step_graphs(dev, errs: dict, floor: float) -> dict:
+def phase_step_graphs(dev, errs: dict, floor: float,
+                      baseline=None) -> dict:
     """Phase 3c: (a) the two linalg kernels against their plain versions on
     seeded inputs, exactly, and their times; (b) config 1 through step
     graphs; (c) the redirect branch as a graph; (d) every update / QR
@@ -2042,7 +2222,7 @@ def phase_step_graphs(dev, errs: dict, floor: float) -> dict:
     errs.setdefault("rank_rotate", 0.0)
     errs.setdefault("gmw_chol", 0.0)
     plain_large = seeded_linalg_checks(dev, errs)
-    out = dict(times=linalg_times(dev, floor, plain_large))
+    out = dict(times=linalg_times(dev, floor, plain_large, baseline))
     out["b"] = step_graph_config1(dev)
     out["c"] = step_graph_redirect(dev)
     out["d"] = step_graph_modes(dev, errs)
@@ -2732,14 +2912,17 @@ def first_update_posterior(state, oracle) -> dict:
                                              - oracle.S.T @ oracle.S).max()))
 
 
-def phase_reference(dev, smi: str) -> dict:
+def phase_reference(dev, smi: str, baseline=None) -> dict:
     """The port on the card against the port's ``OracleSLAM`` (the serial
     NumPy transcription of the reference, on the host): (R1) faithful mode
     in float64 over the prefix windows and the first-update posterior;
     (R2) default mode in float32 with the fused kernel over 67 frames, ATE
     band; (R3) faithful mode, 50 frames, match-set statistics. Faithful
     runs take the plain vision versions (``vision_backend="xla"``): the
-    kernels take float32."""
+    kernels take float32. With ``baseline`` (:func:`load_baseline`), R3's
+    50 frames again by step graphs, without the oracle, with that
+    checkout's ``gmw_chol`` and this tree's in turns (baseline, this, this,
+    baseline): frames/s of each, match sets against the first R3 run."""
     from cv_monoslam_tpu_torch import SlamConfig
     from cv_monoslam_tpu_torch.api import SlamSession
     from cv_monoslam_tpu_torch.io.synthetic import get_sequence
@@ -2864,6 +3047,30 @@ def phase_reference(dev, smi: str) -> dict:
             same += set(_match_sets(eager.state)[1]) == graph_sets[i]
     res.update(r3_fps_eager=49 / port_s, r3_eager_same_sets=same,
                r3_matched_slots=sum(matched))
+    if baseline is not None:
+        from cv_monoslam_tpu_torch.filter import update
+
+        ab = {"baseline": [], "this": []}
+        for who in ("baseline", "this", "this", "baseline"):
+            fn = baseline.linalg.gmw_chol if who == "baseline" \
+                else update.gmw_chol
+            with patched(update, "gmw_chol", fn):
+                s_ab = SlamSession(faithful, seq, track, device=dev)
+                port_s, same = 0.0, 0
+                for i in range(50):
+                    t = time.perf_counter()
+                    s_ab.step()
+                    port_s += (time.perf_counter() - t) * (i > 0)
+                    same += set(_match_sets(s_ab.state)[1]) == graph_sets[i]
+            ab[who].append(49 / port_s)
+            if same != 50:
+                problems.append(f"(R3 A/B) {who}: match sets equal to the "
+                                f"first run's on {same}/50 frames")
+        res["r3_ab_fps"] = ab
+        log(f"[reference] [{smi}] (R3 A/B) faithful mode by step graphs, "
+            f"frames/s in turns (baseline, this, this, baseline): this "
+            f"{[round(x, 2) for x in ab['this']]}, baseline "
+            f"{[round(x, 2) for x in ab['baseline']]}")
     if same == 50 and counts["gmw_chol"] != 2 * sum(matched):
         problems.append(f"(R3) gmw_chol launched {counts['gmw_chol']} "
                         f"times by the step graphs for {sum(matched)} "
@@ -3840,9 +4047,9 @@ def main() -> int:
                     help="the configuration --profile looks at")
     ap.add_argument("--baseline", metavar="DIR",
                     help="another checkout of the port (e.g. the parent "
-                         "commit's): phase 3b times its two recurrence "
-                         "kernels and this tree's in turns on the same "
-                         "inputs")
+                         "commit's): phases 3b and 3c time its four "
+                         "recurrence kernels and this tree's in turns on "
+                         "the same inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3868,14 +4075,15 @@ def main() -> int:
     baseline = load_baseline(args.baseline) if args.baseline else None
     gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"],
              baseline)
-    sg = run(phase_step_graphs, dev, errs, times["launch_floor_ms"])
+    sg = run(phase_step_graphs, dev, errs, times["launch_floor_ms"],
+             baseline)
     sl = run(phase_slice, dev, errs)
     c3 = run(phase_config3, dev, errs)
     rd = run(phase_redirect, dev)
     run(phase_checkpoint, dev)
     c4 = run(phase_config4, dev, errs, info["smi"])
     run(phase_cli, info)
-    ref = run(phase_reference, dev, info["smi"])
+    ref = run(phase_reference, dev, info["smi"], baseline)
     md = run(phase_multidevice, dev, errs, c3, info["smi"])
     if args.profile:
         run(phase_profile, dev, args.config)
@@ -3996,17 +4204,26 @@ def main() -> int:
                  launches_modes={m: sg["d"][m]["launches"][name]
                                  for m, _, _ in MODES},
                  launches_faithful=ref["launches_faithful"][name],
+                 launches_config1=sl["launches"][name],
+                 launches_config3=c3["launches"][name],
+                 launches_config4=c4["launches"][name],
                  max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
                  bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                 library_ms=None, host_ms=t["host_ms"], shape=t["shape"],
-                 steps=t["steps"], us_per_step=t["us_per_step"],
+                 library_ms=t["library_ms"], host_ms=t["host_ms"],
+                 shape=t["shape"], steps=t["steps"],
+                 us_per_step=t["us_per_step"], latency_ms=t["latency_ms"],
+                 ms_runs=t["ms_runs"], baseline_ms=t["baseline_ms"],
                  launch_floor_ms=times["launch_floor_ms"])
+        extra = ("ms_spd", "library_rel_diff") if name == "gmw_chol" \
+            else ("chol_gram_ms",)
+        k.update({f: t[f] for f in extra})
         for key, tk in sg["times"].items():
             if key.startswith(name) and key != mt["main"]:
                 sfx = key[len(name) + 1:]
                 k.update({f"{f}_{sfx}": tk[f] for f in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "steps",
-                    "us_per_step")})
+                    "us_per_step", "library_ms", "latency_ms", "ms_runs",
+                    "baseline_ms") + extra})
         kernels.append(k)
     for name in ("config1", "config3", "config4"):
         g = gr[name]

@@ -371,16 +371,16 @@ def chol_downdate_ref(r: torch.Tensor, u: torch.Tensor,
 # the two recurrences as kernels (csrc/linalg_kernels.cu)
 # ---------------------------------------------------------------------------
 
-#: up to this n one block runs :func:`gmw_chol`'s pivots; above, a
-#: cooperative grid of one block per SM (``linalg_kernels.cu``)
-GMW_ONE_BLOCK_MAX_N = 256
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
-    "cvms_rank_rotate": [_I, _P, _P, _P, _I, _I, _I, ctypes.c_double, _P,
-                         _P],
-    "cvms_gmw_chol": [_I, _P, _P, _P, _I, _I, _P, _P],
+    "cvms_linalg_workspace": [_I, _I, _I, _I, _P],
+    "cvms_rank_rotate": [_I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _P, _P],
+    "cvms_gmw_chol": [_I, _P, _P, _P, _I, _D, _P, _I, _P, _P],
+    "cvms_chain_latency": [_I, _I, _I, _P, _P],
 }
+_KERNEL = {"rank_rotate": 0, "gmw_chol": 1}
 
 
 def _check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
@@ -396,13 +396,33 @@ def _check_kernel_args(name: str, *tensors: torch.Tensor) -> None:
                             f"{t.dtype} on {t.device}")
 
 
+def _lib():
+    from . import _build
+
+    return _build.load(_SIGNATURES, "linalg_kernels")
+
+
 def _launch(name: str, fn: str, dev: torch.device, *args) -> None:
     """Entry point ``fn(*args, stream)`` of ``linalg_kernels`` on ``dev``'s
     current stream (:func:`_build.launch`)."""
     from . import _build
 
-    _build.launch(_build.load(_SIGNATURES, "linalg_kernels"), fn, name, dev,
-                  *args)
+    _build.launch(_lib(), fn, name, dev, *args)
+
+
+def _workspace(name: str, like: torch.Tensor, route: int):
+    """The device workspace that kernel ``name`` asks for at ``like``'s
+    width, dtype and ``route`` (``cvms_linalg_workspace``: the launcher
+    chooses every route), or None where it needs none."""
+    elems = ctypes.c_longlong(0)
+    err = _lib().cvms_linalg_workspace(
+        int(like.dtype == torch.float64), _KERNEL[name], like.shape[0], route,
+        ctypes.addressof(elems))
+    if err:
+        raise RuntimeError(f"{name}: workspace query failed ({err})")
+    if not elems.value:
+        return None
+    return torch.empty(elems.value, dtype=like.dtype, device=like.device)
 
 
 def rank_rotate(r: torch.Tensor, u: torch.Tensor, downdate: bool,
@@ -410,12 +430,14 @@ def rank_rotate(r: torch.Tensor, u: torch.Tensor, downdate: bool,
     """R' with R'^T R' = R^T R + U^T U (``downdate`` False) or R^T R - U^T U
     (True; a column whose downdate would lose positive definiteness, by
     ``eps``, is skipped). ``r`` (n, n), ``u`` (n,) or (k, n). On CUDA
-    tensors one launch of ``csrc/linalg_kernels.cu::rank_rotate_kernel``
-    (all k rows of U), counted on the device and bit for bit the plain
-    version; on CPU tensors the plain version, :func:`chol_update_ref` /
-    :func:`chol_downdate_ref`."""
-    from . import vision
-
+    tensors ``csrc/linalg_kernels.cu``: the k rows of U as one wavefront
+    (row q takes its step p at interval p + q; groups of four above k = 4,
+    one launch each), one warp up to n = 256 and 16 above, each thread's
+    columns of U in registers and of R in shared memory (all rows where
+    they fit, else a ring filled ahead by ``cp.async``); above n = 4096 one
+    row of U a launch, U's row in a workspace. Counted on the device once a
+    call and bit for bit the plain version. On CPU tensors the plain
+    version, :func:`chol_update_ref` / :func:`chol_downdate_ref`."""
     u2 = torch.atleast_2d(u)
     n = r.shape[0]
     if r.shape != (n, n) or u2.dim() != 2 or u2.shape[1] != n:
@@ -427,16 +449,26 @@ def rank_rotate(r: torch.Tensor, u: torch.Tensor, downdate: bool,
     if r.device.type != "cuda":
         raise ValueError(f"rank_rotate: no kernel for {r.device}")
     _check_kernel_args("rank_rotate", r, u2)
-    r, u2 = r.contiguous(), u2.contiguous()
+    return _rotate_launch(r.contiguous(), u2.contiguous(), downdate, eps)
+
+
+def _rotate_launch(r: torch.Tensor, u2: torch.Tensor, downdate: bool,
+                   eps: float, route: int = 0) -> torch.Tensor:
+    """One call of the kernel on contiguous CUDA tensors ``r`` (n, n) and
+    ``u2`` (k, n). ``route`` 0 takes the launcher's route, 1 one row of U a
+    launch at any n (the smoke's check of that route at small n)."""
+    from . import vision
+
+    n, dev = r.shape[0], r.device
     out = torch.empty_like(r)
-    if n and u2.shape[0]:
-        dev = r.device
-        _launch("rank_rotate", "cvms_rank_rotate", dev,
-                int(r.dtype == torch.float64), r.data_ptr(), u2.data_ptr(),
-                out.data_ptr(), n, u2.shape[0], int(downdate), float(eps),
-                vision._device_counter(dev, "rank_rotate").data_ptr())
-    else:
-        out.copy_(r)
+    if not (n and u2.shape[0]):
+        return out.copy_(r)
+    ws = _workspace("rank_rotate", r, route)
+    _launch("rank_rotate", "cvms_rank_rotate", dev,
+            int(r.dtype == torch.float64), r.data_ptr(), u2.data_ptr(),
+            out.data_ptr(), 0 if ws is None else ws.data_ptr(), n,
+            u2.shape[0], int(downdate), float(eps), route,
+            vision._device_counter(dev, "rank_rotate").data_ptr())
     return out
 
 
@@ -458,6 +490,25 @@ def chol_downdate(r: torch.Tensor, u: torch.Tensor,
     return rank_rotate(r, u, downdate=True, eps=eps)
 
 
+def _gmw_launch(a: torch.Tensor, s: torch.Tensor,
+                floors: torch.Tensor | None = None, route: int = 0) -> None:
+    """One call of the kernel: ``a`` (n, n) contiguous on a CUDA device, S
+    into ``s``; the kernel's own floors (delta, beta^2) into ``floors`` when
+    given. ``route`` 0 takes the launcher's route, 1 the grid with its
+    panel in shared memory where it fits, 2 the grid with its panel in the
+    workspace (the smoke's checks of the grid at small n)."""
+    from . import vision
+
+    n, dev = a.shape[0], a.device
+    ws = _workspace("gmw_chol", a, route)
+    # the divisor of beta^2's xi term, as _gmw_floors computes it
+    cdiv = max(float(n * n - 1.0) ** 0.5, 1.0)
+    _launch("gmw_chol", "cvms_gmw_chol", dev, int(a.dtype == torch.float64),
+            a.data_ptr(), s.data_ptr(), 0 if ws is None else ws.data_ptr(),
+            n, cdiv, 0 if floors is None else floors.data_ptr(), route,
+            vision._device_counter(dev, "gmw_chol").data_ptr())
+
+
 def gmw_chol(a: torch.Tensor) -> torch.Tensor:
     """Gill-Murray-Wright modified Cholesky: upper-triangular S with
     S^T S = A + E, E a minimal diagonal making A PD — the reference's
@@ -466,14 +517,16 @@ def gmw_chol(a: torch.Tensor) -> torch.Tensor:
 
     The pivot floors (delta, beta^2) are the JAX package's, so the
     reference-faithful sequential update (downdate_mode="gmw") reproduces
-    the reference's covariance repair. On CUDA tensors the floors by torch
-    ops and one launch of ``csrc/linalg_kernels.cu``'s pivot loop (one
-    block up to :data:`GMW_ONE_BLOCK_MAX_N`, a cooperative grid above),
-    counted on the device and bit for bit :func:`gmw_chol_ref`; on CPU
-    tensors :func:`gmw_chol_ref`.
+    the reference's covariance repair. On CUDA tensors one call of
+    ``csrc/linalg_kernels.cu``, which computes the floors itself as
+    :func:`_gmw_floors` does on the card: where A's lower triangle fits one
+    block's shared memory (n <= 338 in float32, 238 in float64), one block
+    with the triangle there, one barrier a pivot; above, a cooperative grid
+    that factors panels of 8 pivots in one block while the others bring the
+    trailing triangle through the previous panel's updates, one
+    ``grid.sync()`` a panel. Counted on the device and bit for bit
+    :func:`gmw_chol_ref`; on CPU tensors :func:`gmw_chol_ref`.
     """
-    from . import vision
-
     n = a.shape[0]
     if a.shape != (n, n):
         raise ValueError(f"gmw_chol: a square matrix, got {tuple(a.shape)}")
@@ -484,13 +537,5 @@ def gmw_chol(a: torch.Tensor) -> torch.Tensor:
     _check_kernel_args("gmw_chol", a)
     s = torch.empty_like(a, memory_format=torch.contiguous_format)
     if n:
-        dev = a.device
-        floors = _gmw_floors(a)
-        # the kernel's working matrix: A transposed, so a pivot's column is
-        # a row (overwritten)
-        w = a.T.clone(memory_format=torch.contiguous_format)
-        _launch("gmw_chol", "cvms_gmw_chol", dev,
-                int(a.dtype == torch.float64), w.data_ptr(), s.data_ptr(),
-                floors.data_ptr(), n, int(n > GMW_ONE_BLOCK_MAX_N),
-                vision._device_counter(dev, "gmw_chol").data_ptr())
+        _gmw_launch(a.contiguous(), s)
     return s
