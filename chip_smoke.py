@@ -298,8 +298,14 @@ PARITY_CPU = dict(straight_dpose=3.6e-9, arc_dpose=8.7e-10, identical=36,
                   jaccard=0.720)
 
 
+#: True in the ranks of ``--ranks`` other than rank 0, which print nothing
+#: (their results go back to the parent, which checks them)
+_QUIET = False
+
+
 def log(*a):
-    print(*a, flush=True)
+    if not _QUIET:
+        print(*a, flush=True)
 
 
 def card_info() -> dict:
@@ -581,15 +587,21 @@ def check_fused(args, label: str, errs: dict, *, hp_init: int = HP_INIT,
     return got, warped
 
 
-def phase_kernel_checks(dev) -> dict:
-    from cv_monoslam_tpu_torch.ops import vision
-
-    rng = np.random.default_rng(0)
-    errs = {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
+def new_errs() -> dict:
+    """The largest |kernel - plain| seen, by kernel and limit (the checks
+    raise above their limits)."""
+    return {"ncc_score_map": 0.0, "ncc_p_hat": 0.0, "ncc_core": 0.0,
             "warp_bilinear": 0.0, "warp_ncc_score_map": 0.0,
             "warp_ncc_warped": 0.0, "warp_ncc_p_hat": 0.0,
             "warp_ncc_core": 0.0, "warp_ncc_chain": 0.0,
             "store_slots": 0, "gftt_greedy_nms": 0}
+
+
+def phase_kernel_checks(dev) -> dict:
+    from cv_monoslam_tpu_torch.ops import vision
+
+    rng = np.random.default_rng(0)
+    errs = new_errs()
     for m in (16, 32, 37, 576):
         regions, patches = ncc_inputs(m, rng, dev)
         got, _ = check_ncc(regions, patches, f"M={m}", errs)
@@ -884,20 +896,22 @@ def check_captured(captured: "_Captured", errs: dict, label: str,
             check_fused(args, where, errs, **kw)
 
 
-def reset_counters() -> None:
+def reset_counters(dev) -> None:
+    """Zero the launch counters of card ``dev`` (a rank passes its own) and
+    the plain normalization's calls."""
     from cv_monoslam_tpu_torch.ops import vision
 
     vision.normalized_templates.calls = 0
-    vision.reset_device_counts(torch.device("cuda:0"))
+    vision.reset_device_counts(dev)
 
 
-def read_counters() -> dict:
-    """Every kernel's launches, counted on the device (also under graph
-    replay and inside conditional bodies; one device read), and the plain
-    normalization's calls."""
+def read_counters(dev) -> dict:
+    """Every kernel's launches on card ``dev``, counted on the device (also
+    under graph replay and inside conditional bodies; one device read),
+    and the plain normalization's calls."""
     from cv_monoslam_tpu_torch.ops import vision
 
-    return dict(vision.device_counts(torch.device("cuda:0")),
+    return dict(vision.device_counts(dev),
                 plain_normalizations=vision.normalized_templates.calls)
 
 
@@ -1278,7 +1292,7 @@ def graph_vs_eager(sess, chunk: int, label: str, eager_ctx=None) -> dict:
         sess.counter, sess._last_matched = c0, matched0
         if route == "graph":
             torch.cuda.synchronize()
-            reset_counters()
+            reset_counters(sess.device)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 pending = sess._dispatch_chunk(chunk)
@@ -1292,7 +1306,7 @@ def graph_vs_eager(sess, chunk: int, label: str, eager_ctx=None) -> dict:
         n0 = len(sess.records)
         sess._finish_chunk(pending)
         if route == "graph":
-            counts = read_counters()
+            counts = read_counters(sess.device)
         runs[route] = (pending["rows"].numpy().copy(),
                        control.tree_map(torch.clone, sess.state), scans,
                        sess.records[n0:])
@@ -1488,9 +1502,9 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
                 runs.setdefault(name, {}).setdefault(key, []).extend(calls)
             if gate is not None:
                 sess._last_matched = gate
-            reset_counters()
+            reset_counters(dev)
             n_syncs = dispatch_census(sess, chunk)
-            counts = read_counters()
+            counts = read_counters(dev)
             res.setdefault("dispatch_syncs_per_frame", []).append(
                 n_syncs[0] / chunk)
             res.setdefault("finish_syncs_per_chunk", []).append(n_syncs[1])
@@ -1796,12 +1810,12 @@ def seeded_linalg_checks(dev, errs: dict) -> dict:
     return plain_s
 
 
-def chain_latency_ms(name: str, steps: int, dtype) -> float:
-    """The latency bound: one thread running ``steps`` of the recurrence's
-    dependent step arithmetic (``cvms_chain_latency``), CUDA events."""
+def chain_latency_ms(name: str, steps: int, dtype, dev) -> float:
+    """The latency bound on card ``dev``: one thread running ``steps`` of
+    the recurrence's dependent step arithmetic (``cvms_chain_latency``),
+    CUDA events."""
     from cv_monoslam_tpu_torch.ops import _build, linalg
 
-    dev = torch.device("cuda:0")
     lib = _build.load(linalg._SIGNATURES, "linalg_kernels")
     # r, u, ua, rb, eps, a0, a1, beta2, delta; the result
     io = torch.tensor([2.0, 0.3, 0.25, 0.125, 1e-12, 1.0, 0.5, 1.0, 1e-12,
@@ -1872,7 +1886,7 @@ def linalg_times(dev, floor: float, plain_large: dict,
         else:
             pl = plain_ms(lambda *a: linalg_call(name, a, plain=True),
                           sets[0])
-        lat = chain_latency_ms(name, steps, dtype)
+        lat = chain_latency_ms(name, steps, dtype, dev)
         extra = {}
         if name == "gmw_chol":
             spd = [gmw_inputs(n, rng, dev, dtype, "spd") for _ in range(4)]
@@ -1997,7 +2011,7 @@ def step_graph_config1(dev) -> dict:
         sess.counter, sess._last_matched = c0, 0
         waits, guarded = 0, 0
         torch.cuda.synchronize()
-        reset_counters()
+        reset_counters(dev)
         with kept_telemetry(sess) as teles:
             for i in range(41):
                 if i == 23:
@@ -2016,7 +2030,7 @@ def step_graph_config1(dev) -> dict:
                 waits += n[0]
                 guarded += 1
         torch.cuda.synchronize()
-        runs[route] = dict(teles=teles, counts=read_counters(),
+        runs[route] = dict(teles=teles, counts=read_counters(dev),
                            state=control.tree_map(torch.clone, sess.state),
                            waits=waits, guarded=guarded)
     sess._graphs = True
@@ -2238,18 +2252,18 @@ def phase_slice(dev, errs: dict) -> dict:
     seq, track, gt_xy, _ = fixtures.load("bench1_arc")
     cfg = SlamConfig(**CONFIG1)
 
-    reset_counters()
+    reset_counters(dev)
     with captured_kernel_inputs() as captured:
         sess = SlamSession(cfg, seq, track, device=dev)
         sess.step_chunk(chunk)                    # warm-up chunk
     torch.cuda.synchronize()
-    warm = read_counters()
+    warm = read_counters(dev)
     t0 = time.perf_counter()
     n0 = len(sess.records)
     sess.run(chunk=chunk)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = read_counters()
+    counts = read_counters(dev)
     timed_launches = {k: counts[k] - warm[k] for k in KERNELS}
 
     recs = sess.records
@@ -2314,13 +2328,16 @@ def config3_session(dev, chunk: int, **extra):
 
 
 def phase_config3(dev, errs: dict, tag: str = "config3",
-                  **extra) -> dict:
+                  check: bool = True, **extra) -> dict:
     """Config 3 at full width; ``extra`` overrides config fields (the
-    multi-device phase runs it with ``dist_chol_panel`` under a mesh)."""
+    multi-device phase runs it with ``dist_chol_panel`` under a mesh).
+    ``check=False`` returns the failed checks as ``problems`` instead of
+    raising (a rank of ``--ranks`` reports them with its float64 witness
+    beside them). The result also holds :func:`run_digest` of the run."""
     chunk, n_timed = 8, 64
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counters()
+    reset_counters(dev)
     with captured_kernel_inputs(armed=False) as captured:
         t_setup = time.perf_counter()
         sess, gt_xy = config3_session(dev, chunk, **extra)
@@ -2332,7 +2349,7 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
         sess.run(n_frames=n_timed, chunk=chunk, drop_tail=True)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    counts = read_counters()
+    counts = read_counters(dev)
     peak_bytes = torch.cuda.max_memory_allocated()
 
     recs = sess.records
@@ -2384,9 +2401,35 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
         if res[key] > CONFIG3_JAX_CPU[key]:
             problems.append(f"{key} {res[key]} > the JAX engine's "
                             f"{CONFIG3_JAX_CPU[key]}")
-    if problems:
+    if problems and check:
         raise AssertionError(f"{tag} checks failed: " + "; ".join(problems))
+    res["problems"] = problems
+    res["digest"] = run_digest(sess)
     return res
+
+
+def run_digest(sess) -> dict:
+    """sha256 of a session's records (every field but the wall time), of
+    its trajectory and of each field of its state: ranks that hold the
+    same run bit for bit give the same digests."""
+    import hashlib
+
+    from cv_monoslam_tpu_torch.convert import state_to_arrays
+
+    def sha(*parts) -> str:
+        h = hashlib.sha256()
+        for p in parts:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return h.hexdigest()[:16]
+
+    recs = [sha(np.asarray([r.frame, r.n_map, r.n_visible, r.n_matched,
+                            r.redirected, r.n_repairs, r.n_escalations,
+                            r.n_skipped], np.int64), r.pose, r.pose_sqrt_cov)
+            for r in sess.records]
+    return dict(records=sha(np.frombuffer("".join(recs).encode(), np.uint8)),
+                trajectory=sha(sess.trajectory),
+                state={k: sha(v) for k, v in
+                       state_to_arrays(sess.state).items()})
 
 
 def phase_redirect(dev) -> dict:
@@ -2399,7 +2442,7 @@ def phase_redirect(dev) -> dict:
     at, n_frames = 24, 48
     seq, track, _, _ = fixtures.load("bench1_arc")
     track.redirect[at] = True
-    reset_counters()
+    reset_counters(dev)
     sess = SlamSession(SlamConfig(**CONFIG1), seq, track, device=dev)
     sess.run(n_frames=at - 1, chunk=8)
     rec = sess.step()
@@ -2407,7 +2450,7 @@ def phase_redirect(dev) -> dict:
                stored_valid=int(sess.state.stored.valid.sum()))
     sess.run(n_frames=n_frames - at, chunk=8)
     torch.cuda.synchronize()
-    counts = read_counters()
+    counts = read_counters(dev)
     recs = sess.records
     after = [r.n_matched for r in recs[at:]]
     res = dict(frames=len(recs), redirect_frame=rec.frame,
@@ -2676,13 +2719,13 @@ def phase_config4(dev, errs: dict, smi: str) -> dict:
     n_tracked = len(track) - 1
 
     def run(backend):
-        reset_counters()
+        reset_counters(dev)
         sess = SlamSession(cfg, seq, track, backend=backend, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess.run(chunk=chunk)
         torch.cuda.synchronize()
-        return sess, time.perf_counter() - t0, read_counters()
+        return sess, time.perf_counter() - t0, read_counters(dev)
 
     # (a) the filter with its telemetry captured, then the backend by replay
     cap = TelemetryCapture()
@@ -2988,10 +3031,10 @@ def phase_reference(dev, smi: str, baseline=None) -> dict:
     ids = track.frame_id[1:len(otraj) + 1]
     res["ate_oracle"] = float(np.sqrt(((otraj[:, :2] - gt_xy[ids]) ** 2)
                                       .sum(1).mean()))
-    reset_counters()
+    reset_counters(dev)
     sess.run(chunk=32)
     torch.cuda.synchronize()
-    counts = read_counters()
+    counts = read_counters(dev)
     recs = sess.records
     res.update(ate_port=float(sess.ate(gt_xy)), frames=len(recs),
                escalations=recs[-1].n_escalations,
@@ -3010,7 +3053,7 @@ def phase_reference(dev, smi: str, baseline=None) -> dict:
     # frames by the eager route, timed alike, its match sets beside
     oracle, sess, _, _ = pair("arc", faithful)
     identical, jac, graph_sets = 0, [], []
-    reset_counters()
+    reset_counters(dev)
     port_s = 0.0
     for i in range(50):
         oracle_step(oracle)
@@ -3023,7 +3066,7 @@ def phase_reference(dev, smi: str, baseline=None) -> dict:
         identical += e == o
         jac.append(len(e & o) / len(e | o) if e | o else 1.0)
     torch.cuda.synchronize()
-    counts = read_counters()
+    counts = read_counters(dev)
     res["launches_faithful"] = counts
     res.update(identical=identical, jaccard=float(np.mean(jac)),
                r3_fps_graph=49 / port_s,
@@ -3242,7 +3285,7 @@ def md_probe(mesh) -> dict:
     return out
 
 
-def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
+def md_chol(mesh, A: torch.Tensor, smi: str, tag: str = "(a)") -> dict:
     """(a) The distributed factorization of a config-3 joint matrix (kept
     from an eager frame of (b)'s session) against ``cholesky_ex`` of the
     same matrix, and the times of both; the factorization eagerly and as
@@ -3299,9 +3342,10 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
         lambda: torch.linalg.cholesky_ex(A, upper=True))
     n_pad = res["n_padded"]
     res["bound"] = _bound(8 * n_pad * n_pad, n_pad ** 3 // 3)
-    log("[multidevice] (a) dist_chol " + json.dumps(res))
-    log(f"[multidevice] (a) [{smi}] n={n} (padded {n_pad}), panel {panel}, "
-        f"1 rank, one captured graph (capture {capture_s:.2f} s, == eager "
+    res["ranks"] = mesh.size
+    log(f"[multidevice] {tag} dist_chol " + json.dumps(res))
+    log(f"[multidevice] {tag} [{smi}] n={n} (padded {n_pad}), panel {panel}, "
+        f"{mesh.size} rank(s), one captured graph (capture {capture_s:.2f} s, == eager "
         f"{graph_equal}, replay with 0 synchronizing calls): "
         f"{res['ms']:.3f} ms wall ({res['device_busy_ms']:.3f} ms "
         f"device-busy, {res['device_ops']} device ops) per factorization; "
@@ -3330,22 +3374,19 @@ def md_chol(mesh, A: torch.Tensor, smi: str) -> dict:
     if not graph_equal:
         problems.append("the captured factorization differs from eager")
     if problems:
-        raise AssertionError("dist_chol checks failed: "
+        raise AssertionError(f"dist_chol checks failed {tag}: "
                              + "; ".join(problems))
     return res
 
 
-def md_ba(mesh, dev, smi: str) -> dict:
-    """(c) ``ba_solve_sharded`` on the config-5 problem (on the NCCL mesh
-    its iterations are one captured graph) against the port's ``ba_solve``
-    on the card, eagerly and as one captured graph
-    (``control.capture_graph``, as the backend's window solves run): poses
-    to 1e-9, the two ``ba_solve`` routes bit for bit, ms per iteration of
-    each."""
+def ba_single(dev) -> dict:
+    """The config-5 problem's ``ba_solve`` on the card ``dev``, eagerly and
+    as one captured graph (``control.capture_graph``, as the backend's
+    window solves run): the problem, the poses, landmarks and costs, both
+    routes bit for bit, and ms per iteration of each (wall and
+    device-busy)."""
     from cv_monoslam_tpu_torch.backend.ba import ba_solve
     from cv_monoslam_tpu_torch.ops import control
-    from cv_monoslam_tpu_torch.parallel.dist_ba import (ba_solve_sharded,
-                                                        gather_landmarks)
 
     iters = CONFIG5["iters"]
     prob, cfg = config5_problem(dev)
@@ -3353,66 +3394,110 @@ def md_ba(mesh, dev, smi: str) -> dict:
     def single():
         return ba_solve(prob, cfg, iters=iters)
 
-    def sharded():
-        return ba_solve_sharded(prob, cfg, mesh, iters=iters)
-
     p1, l1, c1 = single()
-    t0 = time.perf_counter()
-    ps, ls, cs = sharded()
-    torch.cuda.synchronize()
-    capture_sharded_s = time.perf_counter() - t0
-    lms = gather_landmarks(ls, mesh)
     t0 = time.perf_counter()
     graph, (pg, lg, cg) = control.capture_graph(
         lambda p: ba_solve(p, cfg, iters=iters), (prob,),
         torch.cuda.graph_pool_handle())
     graph.replay()
     torch.cuda.synchronize()
-    capture_single_s = time.perf_counter() - t0
+    capture_s = time.perf_counter() - t0
     graph_equal = all(torch.equal(a, b) for a, b in
                       ((pg, p1), (lg, l1), (cg, c1)))
     # host-paced: synchronized wall time, and a profiled call's busy time
-    ms_single, busy_single, _ = wall_and_busy_ms(single, reps=3)
+    ms, busy, _ = wall_and_busy_ms(single, reps=3)
     ms_graph, busy_graph, _ = wall_and_busy_ms(graph.replay, reps=3)
-    ms_sharded, busy_sharded, _ = wall_and_busy_ms(sharded, reps=3)
-    ms_single, busy_single, ms_graph, busy_graph, ms_sharded, \
-        busy_sharded = (v / iters for v in (
-            ms_single, busy_single, ms_graph, busy_graph, ms_sharded,
-            busy_sharded))
-    res = dict(W=CONFIG5["W"], L=CONFIG5["L"], iters=iters,
-               observed=int(prob.obs_mask.sum()),
-               active_landmarks=int(prob.lm_mask.sum()),
-               max_pose_diff=float((ps - p1).abs().max()),
-               max_landmark_diff=float((lms - l1).abs().max()),
+    return dict(prob=prob, cfg=cfg, poses=p1, landmarks=l1, costs=c1,
+                capture_single_s=capture_s, graph_equal_eager=graph_equal,
+                ms_per_iter_single=ms / iters,
+                busy_ms_per_iter_single=busy / iters,
+                ms_per_iter_single_graph=ms_graph / iters,
+                busy_ms_per_iter_single_graph=busy_graph / iters)
+
+
+def ba_sharded(mesh, prob, cfg) -> dict:
+    """``ba_solve_sharded`` of ``prob`` over ``mesh`` (on an NCCL mesh its
+    iterations are one captured graph, captured by the first call): the
+    poses, all landmarks and the costs, whether it was captured, the
+    first call's seconds, and ms per iteration (wall and device-busy)."""
+    from cv_monoslam_tpu_torch.parallel.dist_ba import (ba_solve_sharded,
+                                                        gather_landmarks)
+
+    iters = CONFIG5["iters"]
+
+    def sharded():
+        return ba_solve_sharded(prob, cfg, mesh, iters=iters)
+
+    t0 = time.perf_counter()
+    ps, ls, cs = sharded()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ms, busy, _ = wall_and_busy_ms(sharded, reps=3)
+    return dict(poses=ps, landmarks=gather_landmarks(ls, mesh), costs=cs,
+                captured=any(isinstance(k, tuple)
+                             and k[0] == "ba_solve_sharded"
+                             for k in mesh.graphs),
+                capture_sharded_s=capture_s, ms_per_iter_sharded=ms / iters,
+                busy_ms_per_iter_sharded=busy / iters)
+
+
+def ba_compare(one: dict, sh: dict, ranks: int, smi: str,
+               tag: str = "(c)") -> dict:
+    """(c) / (c4): the sharded solve (:func:`ba_sharded`, its arrays as
+    numpy or tensors) against ``ba_solve`` on one card
+    (:func:`ba_single`): poses and landmarks to 1e-9 (rtol, atol 1e-11),
+    both ``ba_solve`` routes bit for bit, the sharded iterations captured,
+    finite costs that fall; ms per iteration of all three printed."""
+    def host(t):
+        return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t))
+
+    p1, l1 = host(one["poses"]), host(one["landmarks"])
+    ps, lms, cs = (host(sh[k]) for k in ("poses", "landmarks", "costs"))
+    res = dict(W=CONFIG5["W"], L=CONFIG5["L"], iters=CONFIG5["iters"],
+               ranks=ranks, observed=int(one["prob"].obs_mask.sum()),
+               active_landmarks=int(one["prob"].lm_mask.sum()),
+               max_pose_diff=float(np.abs(ps - p1).max()),
+               max_landmark_diff=float(np.abs(lms - l1).max()),
                cost_first=float(cs[0]), cost_last=float(cs[-1]),
-               cost_last_single=float(c1[-1]),
-               sharded_captured=any(
-                   isinstance(k, tuple) and k[0] == "ba_solve_sharded"
-                   for k in mesh.graphs),
-               capture_sharded_s=capture_sharded_s,
-               capture_single_s=capture_single_s,
-               graph_equal_eager=graph_equal,
-               ms_per_iter_sharded=ms_sharded, ms_per_iter_single=ms_single,
-               ms_per_iter_single_graph=ms_graph,
-               busy_ms_per_iter_sharded=busy_sharded,
-               busy_ms_per_iter_single=busy_single,
-               busy_ms_per_iter_single_graph=busy_graph)
-    log("[multidevice] (c) dist_ba " + json.dumps(res))
-    log(f"[multidevice] (c) [{smi}] W={res['W']} L={res['L']} float64, 1 "
-        f"rank: ba_solve_sharded (captured under NCCL: "
-        f"{res['sharded_captured']}) {ms_sharded:.3f} ms/iteration "
-        f"({busy_sharded:.3f} device-busy), ba_solve graph route "
-        f"{ms_graph:.3f} ms/iteration ({busy_graph:.3f} device-busy), "
-        f"eager route {ms_single:.3f} ms/iteration ({busy_single:.3f} "
-        f"device-busy); graph == eager {graph_equal}; max|pose diff| "
+               cost_last_single=float(host(one["costs"])[-1]),
+               sharded_captured=bool(sh["captured"]),
+               **{k: one[k] for k in (
+                   "capture_single_s", "graph_equal_eager",
+                   "ms_per_iter_single", "ms_per_iter_single_graph",
+                   "busy_ms_per_iter_single",
+                   "busy_ms_per_iter_single_graph")},
+               **{k: sh[k] for k in (
+                   "capture_sharded_s", "ms_per_iter_sharded",
+                   "busy_ms_per_iter_sharded")})
+    log(f"[multidevice] {tag} dist_ba " + json.dumps(res))
+    log(f"[multidevice] {tag} [{smi}] W={res['W']} L={res['L']} float64, "
+        f"{ranks} rank(s): ba_solve_sharded (captured under NCCL: "
+        f"{res['sharded_captured']}) {res['ms_per_iter_sharded']:.3f} "
+        f"ms/iteration ({res['busy_ms_per_iter_sharded']:.3f} device-busy), "
+        f"ba_solve on one card, graph route "
+        f"{res['ms_per_iter_single_graph']:.3f} ms/iteration "
+        f"({res['busy_ms_per_iter_single_graph']:.3f} device-busy), eager "
+        f"route {res['ms_per_iter_single']:.3f} ms/iteration "
+        f"({res['busy_ms_per_iter_single']:.3f} device-busy); graph == "
+        f"eager {res['graph_equal_eager']}; max|pose diff| "
         f"{res['max_pose_diff']:.3e}")
-    close = (torch.allclose(ps, p1, rtol=1e-9, atol=1e-11)
-             and torch.allclose(lms, l1, rtol=1e-9, atol=1e-11))
-    if not (close and graph_equal and res["sharded_captured"]
-            and bool(torch.isfinite(cs).all())
+    close = (np.allclose(ps, p1, rtol=1e-9, atol=1e-11)
+             and np.allclose(lms, l1, rtol=1e-9, atol=1e-11))
+    if not (close and res["graph_equal_eager"] and res["sharded_captured"]
+            and bool(np.isfinite(cs).all())
             and res["cost_last"] < res["cost_first"]):
-        raise AssertionError("dist_ba checks failed")
+        raise AssertionError(f"dist_ba checks failed {tag}")
     return res
+
+
+def md_ba(mesh, dev, smi: str) -> dict:
+    """(c) ``ba_solve_sharded`` on the config-5 problem (on the NCCL mesh
+    its iterations are one captured graph) against the port's ``ba_solve``
+    on the card by both routes (:func:`ba_compare`)."""
+    one = ba_single(dev)
+    return ba_compare(one, ba_sharded(mesh, one["prob"], one["cfg"]),
+                      mesh.size, smi)
 
 
 def config1_track(dev, frames: int):
@@ -3449,12 +3534,12 @@ def sharded_routes(mesh, inputs, layout) -> dict:
                                layout)
 
     torch.cuda.synchronize()
-    reset_counters()
+    reset_counters(mesh.device)
     t0 = time.perf_counter()
     graph = run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    counts = read_counters()
+    counts = read_counters(mesh.device)
     again = no_sync(run)
     with patched(spmd, "_GRAPHS", False):
         eager = run()
@@ -3480,17 +3565,16 @@ def routes_differ(runs: dict, want: dict, poses: np.ndarray) -> list:
     return unequal
 
 
-def md_landmark_step(mesh, dev) -> dict:
-    """(d) The landmark-layout step on 8 frames of config 1 at world size
-    1 by the graph route and by the eager route (:func:`sharded_routes`):
-    both bit for bit the single-device step, the fused kernel launched by
-    the sharded path once per frame under replay, no synchronizing call in
-    the graph route's frames."""
+def config1_single(dev, frames: int = 8) -> dict:
+    """Config 1's first ``frames`` frames by the single-device step on
+    ``dev``, the reference of (d)-(f) and of the ranks' (d4): the inputs
+    (cfg, state after frame 0, images, odometry, redirect flags), the
+    per-frame poses, the final state's arrays and its x, S and discrete
+    table fields, and each frame's step (the state entering it, and its
+    pose, x and S)."""
     from cv_monoslam_tpu_torch.convert import state_to_arrays
     from cv_monoslam_tpu_torch.filter.srukf import slam_step
-    from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
 
-    frames = 8
     cfg, state0, images, odo, redirect = config1_track(dev, frames)
     state = state0
     poses, entering, after = [], [], []
@@ -3500,11 +3584,31 @@ def md_landmark_step(mesh, dev) -> dict:
                                bool(redirect[k]), cfg)
         poses.append(out["pose"])
         after.append(dict(pose=out["pose"], x=state.x, S=state.S))
-    inputs = (cfg, state0, images, odo, redirect)
-    runs = sharded_routes(mesh, inputs, state_shardings(mesh, cfg))
-    counts = runs["counts"]
     want = state_to_arrays(state)
-    unequal = routes_differ(runs, want, torch.stack(poses).cpu().numpy())
+    return dict(
+        frames=frames - 1, inputs=(cfg, state0, images, odo, redirect),
+        single=dict(pose=torch.stack(poses).cpu().numpy(), x=want["x"],
+                    S=want["S"], **{k: want[f"lm.{k}"] for k in
+                                    ("active", "matched", "lid")}),
+        single_state=want,
+        single_steps=(entering, [{k: v.cpu().numpy() for k, v in
+                                  a.items()} for a in after]))
+
+
+def md_landmark_step(mesh, dev) -> dict:
+    """(d) The landmark-layout step on 8 frames of config 1 at world size
+    1 by the graph route and by the eager route (:func:`sharded_routes`):
+    both bit for bit the single-device step, the fused kernel launched by
+    the sharded path once per frame under replay, no synchronizing call in
+    the graph route's frames."""
+    from cv_monoslam_tpu_torch.parallel.mesh import state_shardings
+
+    ref = config1_single(dev)
+    frames = ref["frames"] + 1
+    cfg = ref["inputs"][0]
+    runs = sharded_routes(mesh, ref["inputs"], state_shardings(mesh, cfg))
+    counts = runs["counts"]
+    unequal = routes_differ(runs, ref["single_state"], ref["single"]["pose"])
     res = dict(frames=frames - 1, unequal=unequal,
                n_matched=runs["graph"][1]["n_matched"].tolist(),
                launches=launches(counts),
@@ -3520,15 +3624,8 @@ def md_landmark_step(mesh, dev) -> dict:
     if problems:
         raise AssertionError("landmark-layout checks failed: "
                              + "; ".join(problems))
-    res["single"] = dict(pose=torch.stack(poses).cpu().numpy(),
-                         x=want["x"], S=want["S"],
-                         **{k: want[f"lm.{k}"] for k in
-                            ("active", "matched", "lid")})
-    res["single_state"] = want
-    # each frame's single-device step: the state entering it and its result
-    res["single_steps"] = (entering, [{k: v.cpu().numpy() for k, v in
-                                       a.items()} for a in after])
-    res["inputs"] = inputs
+    res.update({k: ref[k] for k in ("single", "single_state", "single_steps",
+                                    "inputs")})
     return res
 
 
@@ -3562,14 +3659,26 @@ def md_shard_sqrt(mesh, d: dict) -> dict:
     return res
 
 
+def _slots_seen(captured: "_Captured") -> int:
+    """The slot count of the first fused-kernel call kept by
+    :func:`captured_kernel_inputs`: an eager call's, else the first
+    captured graph's."""
+    first = list(captured) or [c for nodes in captured.nodes.values()
+                               for c in nodes]
+    return int(first[0][0][1].shape[0])
+
+
 def _landmark_rank(dev, state0, images, odo, redirect, cfg, entering):
-    """One of the four ranks of (e) and (f) (spawned): config 1's frames
-    over a ``gloo`` group whose ranks share the card, in the landmark layout
-    and then in the ``shard_sqrt`` layout; for each, the poses, the final
-    state's x, S and discrete table fields, the kernel launch counts and the
-    slot count the kernels saw. Then, in the ``shard_sqrt`` layout, one
+    """One rank of (e) / (f4) (spawned; ``gloo``, the ranks sharing the
+    card) or of the ranks' (d4) (NCCL, a card each): config 1's frames
+    through ``spmd.run_frames`` in the landmark layout and then in the
+    ``shard_sqrt`` layout; for each, the poses, the final state's x, S and
+    discrete table fields, the kernel launch counts on this rank's card and
+    the slot count the kernels saw; on NCCL (the graph route) also the
+    same frames by the eager route. Then, in the ``shard_sqrt`` layout, one
     step from each state in ``entering`` (the single-device state that
     entered each frame): pose, x and S of each."""
+    from cv_monoslam_tpu_torch.parallel import spmd
     from cv_monoslam_tpu_torch.parallel.launch import to_device
     from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, state_shardings
     from cv_monoslam_tpu_torch.parallel.spmd import (run_frames,
@@ -3580,15 +3689,22 @@ def _landmark_rank(dev, state0, images, odo, redirect, cfg, entering):
         (state0, images, odo, redirect, entering), dev)
     out = {}
     for name, shard_sqrt in (("landmark", False), ("sqrt", True)):
-        reset_counters()
+        layout = state_shardings(mesh, cfg, shard_sqrt)
+        reset_counters(dev)
         with captured_kernel_inputs(n=1) as captured:
             st, outs = run_frames(state0, images, odo, redirect, cfg, mesh,
-                                  state_shardings(mesh, cfg, shard_sqrt))
+                                  layout)
         torch.cuda.synchronize()
         out[name] = dict(pose=outs["pose"], x=st.x, S=st.S,
                          active=st.lm.active, matched=st.lm.matched,
-                         lid=st.lm.lid, counts=read_counters(),
-                         slots=int(captured[0][0][1].shape[0]))
+                         lid=st.lm.lid, counts=read_counters(dev),
+                         slots=_slots_seen(captured),
+                         graphs=mesh.captures and spmd._GRAPHS)
+        if mesh.captures:
+            with patched(spmd, "_GRAPHS", False):
+                st, outs = run_frames(state0, images, odo, redirect, cfg,
+                                      mesh, layout)
+            out[name]["eager"] = dict(pose=outs["pose"], x=st.x, S=st.S)
     steps = []
     layout = state_shardings(mesh, cfg, shard_sqrt=True)
     for k, st in enumerate(entering, start=1):
@@ -3599,63 +3715,81 @@ def _landmark_rank(dev, state0, images, odo, redirect, cfg, entering):
     return out
 
 
-def md_four_ranks(d: dict, smi: str) -> dict:
+def md_four_ranks(d: dict, smi: str, both: list = None,
+                  tag: str = "(e)") -> dict:
     """(e) Four ranks on the one card (``gloo``, which moves CUDA tensors
     through the host; NCCL refuses two ranks on one card): 8 frames of config
     1 in the landmark layout, 8 slots per rank, held against (d)'s
     single-process run to the CPU tests' tolerances. The same spawn runs
     (f)'s ``shard_sqrt`` layout; its results are kept for
-    :func:`md_four_ranks_sqrt`."""
+    :func:`md_four_ranks_sqrt`. ``both`` (each rank's
+    :func:`_landmark_rank` result) is given by the ranks' (d4), which
+    runs them on NCCL ranks with a card each: then also the graph route
+    equal to the eager route, bit for bit, on every rank."""
     from cv_monoslam_tpu_torch.parallel import launch
 
     cfg, *inputs = d["inputs"]
     t0 = time.perf_counter()
-    both = launch.spawn(_landmark_rank, 4, "cuda",
-                        *launch.to_numpy(tuple(inputs)), cfg,
-                        launch.to_numpy(d["single_steps"][0]),
-                        timeout_s=300.0, backend="gloo")
+    if both is None:
+        both = launch.spawn(_landmark_rank, 4, "cuda",
+                            *launch.to_numpy(tuple(inputs)), cfg,
+                            launch.to_numpy(d["single_steps"][0]),
+                            timeout_s=300.0, backend="gloo")
     wall = time.perf_counter() - t0
+    n = len(both)
     ranks = [r["landmark"] for r in both]
     want = d["single"]
     frames = d["frames"]
-    res = dict(ranks=4, seconds=wall,
+    res = dict(ranks=n, seconds=wall,
                max_pose_diff=max(float(np.abs(r["pose"] - want["pose"])
                                        .max()) for r in ranks),
                slots_per_rank=[r["slots"] for r in ranks],
+               graph_route=[bool(r["graphs"]) for r in ranks],
                launches_per_rank=[{k: r["counts"][k] for k in
                                    KERNELS}
                                   for r in ranks])
-    log("[multidevice] (e) four gloo ranks on one card " + json.dumps(res))
-    log(f"[multidevice] (e) [{smi}] 4 ranks x 8 slots, {frames} frames of "
-        f"config 1: max|pose - single| {res['max_pose_diff']:.3e} "
-        f"(<= 1e-5), {wall:.1f} s with the spawn (and (f)'s run)")
+    what = ("gloo ranks on one card" if tag == "(e)"
+            else "NCCL ranks, a card each")
+    log(f"[multidevice] {tag} {n} {what} " + json.dumps(res))
+    log(f"[multidevice] {tag} [{smi}] {n} ranks x {cfg.max_landmarks // n} "
+        f"slots, {frames} frames of config 1: max|pose - single| "
+        f"{res['max_pose_diff']:.3e} (<= 1e-5), {wall:.1f} s")
     problems = []
     for i, r in enumerate(ranks):
         problems += [f"rank {i}: {p}" for p in
-                     launch_problems(r["counts"], frames, "(e)")]
-        if r["slots"] != 8:
+                     launch_problems(r["counts"], frames, tag)]
+        if r["slots"] != cfg.max_landmarks // n:
             problems.append(f"rank {i} ran the kernels on {r['slots']} "
-                            f"slots, wanted 8")
+                            f"slots, wanted {cfg.max_landmarks // n}")
         for k in ("active", "matched", "lid"):
             if not np.array_equal(r[k], want[k]):
                 problems.append(f"rank {i}: lm_{k} differs")
+        for k in ("pose", "x", "S"):
+            if not np.array_equal(r[k], ranks[0][k]):
+                problems.append(f"rank {i}: {k} differs from rank 0's")
+            if "eager" in r and not np.array_equal(r[k], r["eager"][k]):
+                problems.append(f"rank {i}: {k} of the graph route differs "
+                                f"from the eager route")
     if not res["max_pose_diff"] <= 1e-5:
         problems.append(f"pose differs by {res['max_pose_diff']}")
     if problems:
-        raise AssertionError("four-rank checks failed: "
+        raise AssertionError(f"{n}-rank checks failed: "
                              + "; ".join(problems))
     res["sqrt_ranks"] = [r["sqrt"] for r in both]
     return res
 
 
-def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
-    """(f) at four ``gloo`` ranks on the card (run by (e)'s spawn). Each
+def md_four_ranks_sqrt(d: dict, e: dict, smi: str,
+                       tag: str = "(f)") -> dict:
+    """(f) at four ``gloo`` ranks on the card (run by (e)'s spawn), or at
+    the ranks' NCCL ranks ((d4)). Each
     frame's ``shard_sqrt`` step from the single-device state that entered
     it, against the single-device step, to ``tests/test_torch_spmd.py``'s
     tolerances for one step (pose rtol 1e-5 / atol 1e-6, x 1e-4 / 1e-5, S
     1e-3 / 1e-4). The 7 frames run through from frame 0: discrete fields
     equal to the single-device run, every rank the same, the fused kernel
-    launched by the sharded path on every rank. Its poses are printed, not
+    launched by the sharded path on every rank (on NCCL: the graph route
+    equal to the eager route). Its poses are printed, not
     gated: in float32 the rank-summed Grams round otherwise than one
     product, S differs by ~1e-6 after a step, and the filter amplifies
     that ~25-fold per frame (the same run in float64 stays within 1e-12)."""
@@ -3668,16 +3802,17 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
                   for k in ("pose", "x", "S")}
     run_diffs = {k: max(float(np.abs(r[k] - want[k]).max()) for r in ranks)
                  for k in ("pose", "x", "S")}
-    res = dict(ranks=4, frames=frames, state_dim=d["inputs"][0].state_dim,
+    n = len(ranks)
+    res = dict(ranks=n, frames=frames, state_dim=d["inputs"][0].state_dim,
                max_abs_diff_one_step=step_diffs,
                max_abs_diff_run=run_diffs,
                slots_per_rank=[r["slots"] for r in ranks],
                launches_per_rank=[{k: r["counts"][k] for k in
                                    KERNELS}
                                   for r in ranks])
-    log("[multidevice] (f) shard_sqrt step, four gloo ranks "
+    log(f"[multidevice] {tag} shard_sqrt step, {n} ranks "
         + json.dumps(res))
-    log(f"[multidevice] (f) [{smi}] shard_sqrt, 4 ranks, D = "
+    log(f"[multidevice] {tag} [{smi}] shard_sqrt, {n} ranks, D = "
         f"{res['state_dim']}, {frames} frames of config 1: one step from the "
         f"single-device state, max|diff| pose {step_diffs['pose']:.3e}, x "
         f"{step_diffs['x']:.3e}, S {step_diffs['S']:.3e}; run through, pose "
@@ -3686,13 +3821,16 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
     problems = []
     for i, r in enumerate(ranks):
         problems += [f"rank {i}: {p}" for p in
-                     launch_problems(r["counts"], frames, "(f)")]
+                     launch_problems(r["counts"], frames, tag)]
         for k in ("active", "matched", "lid"):
             if not np.array_equal(r[k], want[k]):
                 problems.append(f"rank {i}: lm_{k} differs")
         for k in ("pose", "x", "S"):
             if not np.array_equal(r[k], ranks[0][k]):
                 problems.append(f"rank {i}: {k} differs from rank 0's")
+            if "eager" in r and not np.array_equal(r[k], r["eager"][k]):
+                problems.append(f"rank {i}: {k} of the graph route differs "
+                                f"from the eager route")
         if r["slots"] != want["active"].shape[0]:
             problems.append(f"rank {i} ran the kernels on {r['slots']} slots")
         for k, rtol, atol in (("pose", 1e-5, 1e-6), ("x", 1e-4, 1e-5),
@@ -3702,13 +3840,16 @@ def md_four_ranks_sqrt(d: dict, e: dict, smi: str) -> dict:
                 problems.append(f"rank {i}: one-step {k} outside rtol "
                                 f"{rtol} / atol {atol}")
     if problems:
-        raise AssertionError("four-rank shard_sqrt checks failed: "
+        raise AssertionError(f"{n}-rank shard_sqrt checks failed: "
                              + "; ".join(problems))
     return res
 
 
-def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
-    """(b) Config 3 with ``dist_chol_panel=64`` under the mesh: phase 5's
+def md_config3(mesh, dev, errs: dict, c3: dict, smi: str,
+               shard_sqrt: bool = False, check: bool = True,
+               profile: bool = False) -> dict:
+    """(b) Config 3 with ``dist_chol_panel=64`` under the mesh
+    (``set_mesh(mesh, shard_sqrt=shard_sqrt)``): phase 5's
     run and limits by the graph route (each chunk one captured graph, the
     collectives and the 1e-3 rung's conditional node inside), the
     distributed factorizations and those not finite counted on the device;
@@ -3718,21 +3859,27 @@ def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
     under ``set_sync_debug_mode("error")``), frames/s of both routes on the
     same windows from the same state (graph, eager, eager, graph), capture
     seconds, the pools' reserve, and the matrix of one eager frame's
-    factorization for (a)."""
+    factorization for (a). ``check=False``: phase 5's failed limits are
+    returned as ``problems`` (:func:`phase_config3`). ``profile``: after
+    the routes, one tracking chunk (the detection gate shut) profiled
+    (:func:`profile_chunk`; on a mesh of several ranks every rank runs
+    the chunk and rank 0 profiles it)."""
     from cv_monoslam_tpu_torch.ops import control
     from cv_monoslam_tpu_torch.parallel import dist_chol
     from cv_monoslam_tpu_torch.parallel.mesh import set_mesh
 
+    layout = "shard_sqrt" if shard_sqrt else "landmark"
     t0 = time.perf_counter()
-    with set_mesh(mesh):
+    with set_mesh(mesh, shard_sqrt=shard_sqrt):
         dist_chol.reset_device_counts(dev)
-        b = phase_config3(dev, errs, tag="config3_dist_chol",
-                          dist_chol_panel=64)
+        b = phase_config3(dev, errs, tag=f"config3_dist_chol_{layout}",
+                          check=check, dist_chol_panel=64)
         counts = dist_chol.device_counts(dev)
         b["dist_chol_calls"], b["rung1"] = (counts["calls"],
                                             counts["not_finite"])
         frames = b["frames"] + 16
-        log(f"[multidevice] (b) config 3 through dist_chol, graph route: "
+        log(f"[multidevice] (b) config 3 through dist_chol, {layout} "
+            f"layout, {mesh.size} rank(s), graph route: "
             f"{b['fps']:.2f} frames/s (phase 5: {c3['fps']:.2f} frames/s, "
             f"same call) [{smi}]; {counts['calls']} distributed "
             f"factorizations in {frames} frames (counted on the device), "
@@ -3751,13 +3898,22 @@ def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
         b["capture_s"] = {f"{k}x{'detect' if d else 'track'}": v
                           for (k, d, _, _), v in sess.capture_s.items()}
         b["footprint"] = pool_footprint(sess)
+        if profile:
+            sess._last_matched = sess.cfg.min_num
+            if mesh.rank == 0:
+                b["profile"] = profile_chunk(
+                    sess, 8, f"config 3 through dist_chol, {layout}, "
+                    f"{mesh.size} rank(s), graph")
+            else:
+                sess.step_chunk(8)
         sess._graphs = False
         with kept_dist_chol_matrix() as kept:
             sess.step()
         sess._graphs = True
     b["kept"] = kept[0]
     fps = b["routes"]
-    log(f"[multidevice] (b) [{smi}] config 3 through dist_chol, same windows "
+    log(f"[multidevice] (b) [{smi}] config 3 through dist_chol, {layout}, "
+        f"{mesh.size} rank(s), same windows "
         f"from the same state (graph, eager, eager, graph): frames/s graph "
         f"{fps['graph']} eager {fps['eager']}; capture {b['capture_s']} s; "
         f"reserved after the captures: graph pool "
@@ -3769,10 +3925,12 @@ def md_config3(mesh, dev, errs: dict, c3: dict, smi: str) -> dict:
     return b
 
 
-def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
+def md_witness64(mesh, dev, b: dict, smi: str,
+                 shard_sqrt: bool = False) -> dict:
     """(b64) A second witness to (b)'s ATE: (b)'s frames through the
     distributed factorization in float64 by the graph route, with the
-    plain vision versions (the kernels take float32). Whether float64
+    plain vision versions (the kernels take float32), in (b)'s layout.
+    Whether float64
     needs the 1e-3 rung, and where its ATE falls against (b)'s, tells the
     rung's share of the float32 spread from the filter's ordinary roundoff.
     Checks 64 finite frames and no synchronizing call in the dispatch of
@@ -3780,7 +3938,8 @@ def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
     from cv_monoslam_tpu_torch.parallel import dist_chol
     from cv_monoslam_tpu_torch.parallel.mesh import set_mesh
 
-    with set_mesh(mesh):
+    layout = "shard_sqrt" if shard_sqrt else "landmark"
+    with set_mesh(mesh, shard_sqrt=shard_sqrt):
         dist_chol.reset_device_counts(dev)
         sess, gt_xy = config3_session(dev, 8, dist_chol_panel=64,
                                       dtype="float64", vision_backend="xla")
@@ -3793,6 +3952,7 @@ def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
         counts = dist_chol.device_counts(dev)
     recs = sess.records
     res = dict(frames=len(recs) - n0, fps=56 / dt, graph_route=True,
+               layout=layout, ranks=mesh.size,
                ate_m=sess.ate(gt_xy), dist_chol_calls=counts["calls"],
                rung1=counts["not_finite"], dispatch_syncs=syncs[0],
                peak_matched=max(r.n_matched for r in recs),
@@ -3801,7 +3961,8 @@ def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
                skipped=recs[-1].n_skipped)
     log("[multidevice] (b64) config 3 float64 " + json.dumps(res))
     log(f"[multidevice] (b64) [{smi}] config 3 through dist_chol in float64 "
-        f"by the graph route: ATE {res['ate_m']:.5f} m, {res['rung1']} of "
+        f"by the graph route, {layout}, {mesh.size} rank(s): ATE "
+        f"{res['ate_m']:.5f} m, {res['rung1']} of "
         f"{res['dist_chol_calls']} factorizations not finite (counted on "
         f"the device); float32 (b): ATE {b['ate_m']:.5f} m, {b['rung1']} "
         f"of {b['dist_chol_calls']}; {res['fps']:.2f} frames/s; "
@@ -3810,6 +3971,7 @@ def md_witness64(mesh, dev, b: dict, smi: str) -> dict:
             or syncs[0]):
         raise AssertionError("float64 witness: not 64 finite frames, or a "
                              "synchronizing call in a dispatch")
+    res["digest"] = run_digest(sess)
     return res
 
 
@@ -3857,6 +4019,290 @@ def phase_multidevice(dev, errs: dict, c3: dict, smi: str) -> dict:
         finally:
             dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# --ranks N: the mesh paths on N NCCL ranks, a card each
+# ---------------------------------------------------------------------------
+
+#: seconds each phase of a rank of ``--ranks`` may take; a rank still in
+#: the phase then prints its threads' tracebacks and exits, so a hang (a
+#: collective that one rank never reaches, a replayed graph whose NCCL
+#: kernels wait forever) names its phase and ends the run
+RANK_DEADLINES = {"p4": 90, "d4": 120, "b4 landmark": 240,
+                  "b4 shard_sqrt": 240, "b64 landmark": 150,
+                  "b64 shard_sqrt": 150, "a4": 150, "c4": 120}
+#: seconds the ranks may take to start (imports, CUDA, the NCCL group)
+RANK_START_S = 180
+
+
+@contextlib.contextmanager
+def deadline(rank: int, name: str):
+    """Phase ``name`` of a rank under its deadline (:data:`RANK_DEADLINES`):
+    past it, ``faulthandler`` writes every thread's traceback to stderr
+    and exits the process; the spawning parent then stops every rank."""
+    import faulthandler
+
+    seconds = RANK_DEADLINES[name]
+    print(f"[ranks] rank {rank}: ({name}) starts, deadline {seconds} s",
+          file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"[ranks] ({name}) {time.perf_counter() - t0:.1f} s")
+
+
+def _tensor_digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _mesh_rank(dev, config1: tuple, entering: list, c3: dict, smi: str,
+               profile: bool) -> dict:
+    """One NCCL rank of ``--ranks`` (spawned by ``launch.spawn``; its card
+    is ``dev``), every phase under its deadline: (p4) :func:`md_probe`;
+    (d4) :func:`_landmark_rank` on config 1's 8 frames (``config1``: the
+    parent's inputs, ``entering``: the single-device states entering each
+    frame); (b4) :func:`md_config3` in the landmark and the
+    ``shard_sqrt`` layout (phase 5's limits reported, not raised); (b64)
+    :func:`md_witness64` in both; (a4) :func:`md_chol` on the joint matrix
+    of an eager frame of (b4)'s landmark run; (c4) :func:`ba_sharded` on
+    the config-5 problem made on this card. Rank 0 prints; the parent
+    checks every rank's results against its single-card references and
+    against rank 0's."""
+    global _QUIET
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=dev)
+    _QUIET = mesh.rank != 0
+    r = mesh.rank
+    errs = new_errs()
+    out = dict(rank=r, device=str(dev), card=torch.cuda.get_device_name(dev))
+    log(f"[ranks] NCCL group of {mesh.size} ranks; rank 0 on {dev}")
+    with deadline(r, "p4"):
+        out["p4"] = md_probe(mesh)
+    if any(v != "captured" for v in out["p4"].values()):
+        # the 1e-3 rung of (b4) holds its collectives in such a body
+        raise AssertionError(f"(p4) rank {r}: NCCL collectives in a "
+                             f"conditional body: {out['p4']}")
+    with deadline(r, "d4"):
+        out["d4"] = _landmark_rank(dev, *config1, entering)
+    kept = None
+    for layout, sq in (("landmark", False), ("shard_sqrt", True)):
+        with deadline(r, f"b4 {layout}"):
+            torch.cuda.reset_peak_memory_stats(dev)
+            b = md_config3(mesh, dev, errs, c3, smi, shard_sqrt=sq,
+                           check=False, profile=profile and sq)
+            b["peak_memory"] = torch.cuda.max_memory_allocated(dev)
+            matrix = b.pop("kept")
+            kept = matrix if kept is None else kept
+            out[f"b4 {layout}"] = b
+    for layout, sq in (("landmark", False), ("shard_sqrt", True)):
+        with deadline(r, f"b64 {layout}"):
+            out[f"b64 {layout}"] = md_witness64(mesh, dev, out[f"b4 {layout}"],
+                                                smi, shard_sqrt=sq)
+    with deadline(r, "a4"):
+        out["a4"] = md_chol(mesh, kept, smi, tag="(a4)")
+        out["a4"]["matrix_digest"] = _tensor_digest(kept)
+        out["a4_matrix"] = kept if r == 0 else None
+    with deadline(r, "c4"):
+        prob, cfg = config5_problem(dev)
+        out["c4"] = ba_sharded(mesh, prob, cfg)
+    return out
+
+
+def digests_differ(a: dict, b: dict) -> list:
+    """The parts of two :func:`run_digest` results that differ."""
+    return ([k for k in ("records", "trajectory") if a[k] != b[k]]
+            + [f"state.{k}" for k in a["state"]
+               if a["state"][k] != b["state"][k]])
+
+
+def ranks_config3(ranks: list, c3: dict, layout: str, smi: str) -> list:
+    """(b4) / (b64) of one layout, from every rank's results: prints the
+    frames/s and the speed-up over the single card (phase 5 in the same
+    call), the routes, captures, pools and peak memory of each rank, and
+    returns what failed: phase 5's limits on any rank, a rank whose
+    records, trajectory or state differ from rank 0's (in float32 or in
+    float64)."""
+    n = len(ranks)
+    bs = [r[f"b4 {layout}"] for r in ranks]
+    ws = [r[f"b64 {layout}"] for r in ranks]
+    b0, w0 = bs[0], ws[0]
+    problems = []
+    for i, (b, w) in enumerate(zip(bs, ws)):
+        problems += [f"rank {i}: {p}" for p in b["problems"]]
+        for what, got, want in (("float32", b, b0), ("float64", w, w0)):
+            differ = digests_differ(got["digest"], want["digest"])
+            if differ:
+                problems.append(f"rank {i} ({what}) differs from rank 0 in "
+                                f"{differ[:6]}")
+    res = dict(
+        layout=layout, ranks=n, fps=b0["fps"], fps_single_card=c3["fps"],
+        speedup=b0["fps"] / c3["fps"], fps_per_rank=[b["fps"] for b in bs],
+        ate_m=b0["ate_m"], ate_single_card_m=c3["ate_m"],
+        peak_matched=b0["peak_matched"], escalations=b0["escalations"],
+        skipped=b0["skipped"], dist_chol_calls=[b["dist_chol_calls"]
+                                                for b in bs],
+        rung1=[b["rung1"] for b in bs],
+        routes_graph=b0["routes"]["graph"], routes_eager=b0["routes"]["eager"],
+        graph_equal_eager_rows=[b["graph_vs_eager"]["rows_equal"]
+                                for b in bs],
+        capture_s=[b["capture_s"] for b in bs],
+        graph_pool_mib=[b["footprint"]["graph_pool"] / 2**20 for b in bs],
+        body_pool_mib=[b["footprint"]["body_pool"] / 2**20 for b in bs],
+        peak_memory_mib=[b["peak_memory"] / 2**20 for b in bs],
+        launches_per_rank=[b["launches"] for b in bs],
+        float64_ate_m=w0["ate_m"], float64_rung1=[w["rung1"] for w in ws],
+        float64_fps=w0["fps"], problems=problems)
+    if "profile" in b0:
+        res["profile_rank0"] = b0["profile"]
+    log(f"[ranks] (b4) {layout} " + json.dumps(res))
+    log(f"[ranks] (b4) [{smi}] config 3 through dist_chol, {layout} layout, "
+        f"{n} ranks: {res['fps']:.2f} frames/s by the graph route against "
+        f"{c3['fps']:.2f} on one card (phase 5, same call): speed-up "
+        f"{res['speedup']:.3f}; same windows graph {res['routes_graph']} / "
+        f"eager {res['routes_eager']} f/s; ATE {res['ate_m']:.5f} m "
+        f"(float64 {res['float64_ate_m']:.5f} m), peak matched "
+        f"{res['peak_matched']}, {res['escalations']} escalated, "
+        f"{res['skipped']} skipped; rung taken {res['rung1']} (float64 "
+        f"{res['float64_rung1']}); ranks equal to rank 0: "
+        f"{not any('differs from rank 0' in p for p in problems)}")
+    return problems
+
+
+def main_ranks(n: int, profile: bool) -> int:
+    """``--ranks n``: the multi-device paths on ``n`` NCCL ranks, card r
+    for rank r. The kernels are built, the single-card references run on
+    card 0 in this process (config 1's 8 frames by the single-device
+    step, phase 5's config-3 run, config 5's ``ba_solve``), then ``n``
+    ranks are spawned (:func:`_mesh_rank`) and their results checked here;
+    last, at one NCCL rank in this process, config 3 through the
+    distributed factorization (its frames/s, the scaling baseline) and
+    (a4)'s matrix factorized at world size 1."""
+    import torch.distributed as dist
+    from cv_monoslam_tpu_torch.parallel import launch
+    from cv_monoslam_tpu_torch.parallel.mesh import make_mesh, set_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < n:
+        print(f"chip_smoke: --ranks {n} needs {n} cards (one per NCCL "
+              f"rank), this machine has {cards}", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    info = card_info()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    for i, line in enumerate(smi):
+        log(f"[card] {i}: {line}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout.rstrip()
+    for line in topo.splitlines():
+        log(f"[topo] {line}")
+    log("[topo] peer access (row: from card, column: to card): " + "; ".join(
+        " ".join("-" if i == j else
+                 str(int(torch.cuda.can_device_access_peer(i, j)))
+                 for j in range(cards)) for i in range(cards)))
+    log(f"[card] python {sys.version.split()[0]}, torch {torch.__version__}"
+        f", CUDA {torch.version.cuda}, NCCL {torch.cuda.nccl.version()}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmul is on: covariance math needs FP32")
+    used = "; ".join(smi[:n])
+
+    def run(phase, *a):
+        t0 = time.perf_counter()
+        out = phase(*a)
+        log(f"[phase] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run(phase_build)
+    c1 = run(config1_single, dev)
+    errs = new_errs()
+    c3 = run(phase_config3, dev, errs)
+    one = run(ba_single, dev)
+    cfg1, *inputs = c1["inputs"]
+    t0 = time.perf_counter()
+    ranks = launch.spawn(
+        _mesh_rank, n, "cuda", launch.to_numpy(tuple(inputs)) + (cfg1,),
+        launch.to_numpy(c1["single_steps"][0]),
+        dict(fps=c3["fps"], ate_m=c3["ate_m"]), used, profile,
+        timeout_s=RANK_START_S + sum(RANK_DEADLINES.values()))
+    log(f"[phase] {n} ranks: {time.perf_counter() - t0:.1f} s")
+    failed = []
+    for i, r in enumerate(ranks):
+        log(f"[ranks] rank {i} ran on {r['device']} ({r['card']})")
+    log(f"[ranks] (p4) [{used}] NCCL collectives in a conditional body at "
+        f"{n} ranks, per rank: " + json.dumps([r["p4"] for r in ranks]))
+    d4 = md_four_ranks(c1, used, both=[r["d4"] for r in ranks], tag="(d4)")
+    f4 = md_four_ranks_sqrt(c1, d4, used, tag="(d4 shard_sqrt)")
+    for layout in ("landmark", "shard_sqrt"):
+        failed += [f"(b4 {layout}) {p}"
+                   for p in ranks_config3(ranks, c3, layout, used)]
+    a4 = ranks[0]["a4"]
+    if len({r["a4"]["matrix_digest"] for r in ranks}) != 1:
+        failed.append("(a4) the ranks kept different matrices")
+    c4 = ba_compare(one, ranks[0]["c4"], n, used, tag="(c4)")
+    for i, r in enumerate(ranks):
+        if not all(np.array_equal(r["c4"][k], ranks[0]["c4"][k])
+                   for k in ("poses", "landmarks", "costs")):
+            failed.append(f"(c4) rank {i} differs from rank 0")
+
+    # world size 1 in this process: the scaling baseline and (a4)'s matrix
+    with tempfile.TemporaryDirectory() as tmp:
+        launch.init_process(0, 1, "cuda", os.path.join(tmp, "rendezvous"))
+        try:
+            mesh1 = make_mesh()
+            with set_mesh(mesh1):
+                b1 = phase_config3(dev, errs, "config3_dist_chol_one_rank",
+                                   check=False, dist_chol_panel=64)
+            failed += [f"(b1) {p}" for p in b1["problems"]]
+            a1 = md_chol(mesh1, torch.as_tensor(ranks[0]["a4_matrix"],
+                                                device=dev),
+                         smi[0], tag="(a1)")
+        finally:
+            dist.destroy_process_group()
+    summary = dict(
+        ranks=n, cards=smi[:n],
+        launches_per_rank={
+            phase: [r[key]["launches"] for r in ranks]
+            for phase, key in (("b4 landmark", "b4 landmark"),
+                               ("b4 shard_sqrt", "b4 shard_sqrt"))},
+        launches_per_rank_d4=d4["launches_per_rank"],
+        launches_per_rank_d4_shard_sqrt=f4["launches_per_rank"],
+        config3_fps=dict(single_card=c3["fps"], one_rank_dist_chol=b1["fps"],
+                         **{layout: ranks[0][f"b4 {layout}"]["fps"]
+                            for layout in ("landmark", "shard_sqrt")}),
+        dist_chol_ms=dict(ranks=a4["ms"], ranks_busy=a4["device_busy_ms"],
+                          ranks_eager=a4["eager_ms"], one_rank=a1["ms"],
+                          one_rank_busy=a1["device_busy_ms"],
+                          cholesky_ex=a1["library_ms"],
+                          cholesky_ex_rank0=a4["library_ms"]),
+        ba_ms_per_iter=dict(ranks=c4["ms_per_iter_sharded"],
+                            single_card_graph=c4["ms_per_iter_single_graph"],
+                            single_card_eager=c4["ms_per_iter_single"]),
+        failed=failed)
+    log(f"[ranks] config 3 frames/s [{used}]: one card "
+        f"{c3['fps']:.2f}, one NCCL rank through dist_chol {b1['fps']:.2f}, "
+        f"{n} ranks landmark {summary['config3_fps']['landmark']:.2f} / "
+        f"shard_sqrt {summary['config3_fps']['shard_sqrt']:.2f}; dist_chol "
+        f"n=4612 as a graph {a4['ms']:.3f} ms at {n} ranks, {a1['ms']:.3f} "
+        f"ms at one, cholesky_ex {a1['library_ms']:.3f} ms; BA config 5 "
+        f"{c4['ms_per_iter_sharded']:.3f} ms/iteration at {n} ranks, "
+        f"{c4['ms_per_iter_single_graph']:.3f} on one card")
+    log(json.dumps({"ranks": summary}))
+    if failed:
+        raise AssertionError("--ranks checks failed: " + "; ".join(failed))
+    for line in smi[:n]:
+        log(line)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": info["kind"],
+                                           "count": n}}))
+    return 0
 
 
 def phase_profile(dev, config: int) -> None:
@@ -3980,9 +4426,11 @@ def wall_and_busy_ms(fn, reps: int = 5) -> Tuple[float, float, int]:
     """For a call that the host, not the device, paces: the median wall
     time of ``reps`` calls (host clock, synchronized at both ends), and of
     one profiled call the device-busy time (the union of its device
-    intervals) and its count of device operations."""
+    intervals, clipped to the call's span: at four NCCL ranks the profiler
+    gave an eager call's NCCL kernels intervals of seconds) and its count
+    of device operations."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     walls = []
     for _ in range(reps):
@@ -3993,16 +4441,27 @@ def wall_and_busy_ms(fn, reps: int = 5) -> Tuple[float, float, int]:
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return statistics.median(walls), union_us(spans) / 1e3, len(spans)
+        with record_function("wall_and_busy_ms"):
+            fn()
+            torch.cuda.synchronize()
+    # the annotation also leaves a device-side event spanning the call
+    call = next(e.time_range for e in prof.events()
+                if e.name == "wall_and_busy_ms"
+                and e.device_type != DeviceType.CUDA)
+    lo, hi = call.start, call.end
+    spans = [(max(e.time_range.start, lo), min(e.time_range.end, hi))
+             for e in prof.events() if e.device_type == DeviceType.CUDA
+             and e.name != "wall_and_busy_ms"]
+    return (statistics.median(walls),
+            union_us([(a, b) for a, b in spans if b > a]) / 1e3, len(spans))
 
 
-def profile_chunk(sess, chunk: int, label: str, n_chunks: int = 1) -> None:
+def profile_chunk(sess, chunk: int, label: str, n_chunks: int = 1) -> dict:
     """``torch.profiler`` over ``n_chunks`` calls of ``step_chunk(chunk)``
-    (whose graph the caller has captured already)."""
+    (whose graph the caller has captured already): wall and device-busy
+    time per frame, the NCCL kernels' share of the busy time, the device's
+    idle gaps (the largest, and the time in gaps over 10 µs) and the
+    device time by kernel name; returns the first of these."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4025,18 +4484,42 @@ def profile_chunk(sess, chunk: int, label: str, n_chunks: int = 1) -> None:
         k = by_name.setdefault(e.name, [0, 0.0])
         k[0] += 1
         k[1] += b - a
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
     busy = union_us(spans)
+    nccl = union_us([(e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "nccl" in e.name.lower()])
+    gaps, end = [], None
+    for a, b in sorted(spans):
+        if end is not None and a > end:
+            gaps.append(a - end)
+        end = b if end is None else max(end, b)
+    res = dict(frames=n, wall_ms_per_frame=wall_us / n / 1e3,
+               busy_ms_per_frame=busy / n / 1e3, busy_share=busy / wall_us,
+               device_ops_per_frame=len(spans) / n,
+               syncs_per_frame=syncs / n, nccl_share_of_busy=nccl / busy,
+               nccl_ms_per_frame=nccl / n / 1e3,
+               largest_gap_us=max(gaps, default=0.0),
+               gaps_over_10us_ms_per_frame=sum(
+                   g for g in gaps if g > 10.0) / n / 1e3)
     tag = f"[profile] {label}, detect={sess.chunk_detect[-1]}"
-    log(f"{tag}: {n} frames: {wall_us / n / 1e3:.3f} ms/frame wall, "
-        f"{busy / n / 1e3:.3f} ms/frame device-busy "
-        f"({100.0 * busy / wall_us:.1f}% busy), {len(spans) / n:.1f} device "
-        f"ops/frame, {syncs / n:.1f} synchronizing host calls/frame")
+    log(f"{tag}: {n} frames: {res['wall_ms_per_frame']:.3f} ms/frame wall, "
+        f"{res['busy_ms_per_frame']:.3f} ms/frame device-busy "
+        f"({100.0 * res['busy_share']:.1f}% busy), "
+        f"{res['device_ops_per_frame']:.1f} device ops/frame, "
+        f"{res['syncs_per_frame']:.1f} synchronizing host calls/frame; NCCL "
+        f"kernels {res['nccl_ms_per_frame']:.3f} ms/frame "
+        f"({100.0 * res['nccl_share_of_busy']:.1f}% of busy); idle gaps: "
+        f"largest {res['largest_gap_us']:.1f} us, "
+        f"{res['gaps_over_10us_ms_per_frame']:.3f} ms/frame in gaps over "
+        f"10 us")
     for name, (cnt, us) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][1])[:15]:
         log(f"{tag}   {us / n:9.1f} us/frame  {cnt / n:6.1f}/frame  "
             f"{name[:90]}")
-    if not spans:
-        raise AssertionError("the profiler recorded no device activity")
+    return res
 
 
 def main() -> int:
@@ -4050,11 +4533,19 @@ def main() -> int:
                          "commit's): phases 3b and 3c time its four "
                          "recurrence kernels and this tree's in turns on "
                          "the same inputs")
+    ap.add_argument("--ranks", type=int, choices=(1, 4),
+                    help="instead of the smoke, the multi-device paths on "
+                         "this many NCCL ranks, a card each (fails on a "
+                         "machine with fewer cards; 1 rehearses the four-"
+                         "card run on one card)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import cv_monoslam_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    if args.ranks:
+        return main_ranks(args.ranks, args.profile)
 
     dev = torch.device("cuda:0")
     info = card_info()

@@ -32,16 +32,19 @@ from ..ops import control
 
 def resolve_device(device: Optional[Union[str, torch.device]]
                    ) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another. Without an explicit device and without CUDA this raises — the
-    engine never drops to the CPU on its own."""
+    """The device an entry point runs on: the current card unless the
+    caller names another. Without an explicit device and without CUDA this
+    raises — the engine never drops to the CPU on its own. A card is
+    returned with its index (``cuda:<current_device()>`` for ``cuda``), the
+    name its tensors report, so that per-device state is keyed alike
+    (``ops.control.card``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device available; pass device='cpu' to run on the "
                 "CPU explicitly")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    return control.card(device)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -113,15 +113,27 @@ def host_bool(pred) -> bool:
         host_read_depth -= 1
 
 
+def card(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current card,
+    as every tensor made on it reports (``cuda:<current_device()>``). The
+    keys of per-device state (:func:`cached` tensors such as the launch
+    counters, streams) take this form, so that ``cuda`` and the indexed
+    name of the same card share one entry, and a rank of a mesh, whose
+    current card is its own, never reaches another rank's."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 _STREAMS: Dict[Any, "torch.cuda.Stream"] = {}
 _warm_depth = 0
 
 
 def _body_stream(device: torch.device, depth: int) -> "torch.cuda.Stream":
     """The stream conditional bodies at nesting ``depth`` run on."""
-    device = torch.device(device)
-    key = (device.index if device.index is not None
-           else torch.cuda.current_device(), depth)
+    device = card(device)
+    key = (device.index, depth)
     if key not in _STREAMS:
         _STREAMS[key] = torch.cuda.Stream(device)
     return _STREAMS[key]
@@ -345,6 +357,6 @@ def cached(key, build: Callable[[], torch.Tensor]) -> torch.Tensor:
 def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     """``torch.tensor(values, dtype=dtype, device=device)`` built once;
     ``values`` is a number or nested tuples of numbers."""
-    device = torch.device(device)
+    device = card(device)
     return cached(("tensor", values, dtype, device),
                   lambda: torch.tensor(values, dtype=dtype, device=device))

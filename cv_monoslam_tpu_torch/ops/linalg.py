@@ -74,14 +74,14 @@ _CUDA_R = {torch.float32: 0, torch.float64: 1}       # cudaDataType
 _UPPER = 1                                            # CUBLAS_FILL_MODE_UPPER
 
 
-def _cusolver():
+def _cusolver(dev: torch.device):
     global _CUSOLVER
     if _CUSOLVER is None:
         if control.capturing() is not None:
             raise RuntimeError("cuSOLVER first loaded inside a CUDA graph "
                                "capture")
         # the library PyTorch loaded (its linear algebra loads it lazily)
-        torch.linalg.cholesky_ex(torch.ones((1, 1), device="cuda"))
+        torch.linalg.cholesky_ex(torch.ones((1, 1), device=dev))
         path = "libcusolver.so.11"
         with open("/proc/self/maps") as maps:
             for line in maps:
@@ -111,8 +111,8 @@ def _potrf_upper(sym: torch.Tensor):
     """cusolverDnXpotrf (upper) of the symmetric CUDA matrix ``sym``, in
     place, on the current stream with that stream's own handle. Returns
     (R row-major, info)."""
-    lib = _cusolver()
     dev = sym.device
+    lib = _cusolver(dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     key = (dev.index, stream)
     if key not in _HANDLES:
@@ -120,7 +120,9 @@ def _potrf_upper(sym: torch.Tensor):
             raise RuntimeError("a cuSOLVER handle first made inside a CUDA "
                                "graph capture")
         h, prm = _P(), _P()
-        _cusolver_check(lib.cusolverDnCreate(ctypes.byref(h)), "create")
+        # a handle belongs to the card that is current when it is made
+        with torch.cuda.device(dev):
+            _cusolver_check(lib.cusolverDnCreate(ctypes.byref(h)), "create")
         _cusolver_check(lib.cusolverDnSetStream(h, _P(stream)), "set stream")
         _cusolver_check(lib.cusolverDnCreateParams(ctypes.byref(prm)),
                         "create params")

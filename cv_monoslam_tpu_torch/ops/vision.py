@@ -502,7 +502,7 @@ KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear",
 
 def _counts(dev) -> torch.Tensor:
     """The (len(KERNELS),) int32 launch counters on ``dev``, zeroed."""
-    dev = torch.device(dev)
+    dev = control.card(dev)
     return control.cached(("launch_counts", dev), lambda: torch.zeros(
         len(KERNELS), dtype=torch.int32, device=dev))
 
@@ -514,7 +514,7 @@ def _device_counter(dev, name: str) -> torch.Tensor:
     them."""
     counts = _counts(dev)
     if control.warming():
-        return control.cached(("warmup_counter", torch.device(dev)),
+        return control.cached(("warmup_counter", control.card(dev)),
                               lambda: torch.zeros(1, dtype=torch.int32,
                                                   device=dev))
     i = KERNELS.index(name)
@@ -631,7 +631,7 @@ def _greedy_arrivals(dev) -> torch.Tensor:
     the current stream of the thread that drives the device, and a
     captured graph's replays on the stream that replays it. Two grid
     launches running at once on two streams would corrupt the count."""
-    dev = torch.device(dev)
+    dev = control.card(dev)
     return control.cached(("greedy_arrivals", dev), lambda: torch.zeros(
         1, dtype=torch.int32, device=dev))
 

@@ -140,7 +140,7 @@ def chol_rowsharded_padded(A: torch.Tensor, mesh: Mesh,
 
 def _counts(dev) -> torch.Tensor:
     """(2,) int32 on ``dev``: factorizations, and those not finite."""
-    dev = torch.device(dev)
+    dev = control.card(dev)
     return control.cached(("dist_chol_counts", dev), lambda: torch.zeros(
         2, dtype=torch.int32, device=dev))
 

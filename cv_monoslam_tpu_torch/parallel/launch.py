@@ -18,6 +18,7 @@ meshes of several sizes, with numpy arguments moved to each rank's device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -25,14 +26,14 @@ import queue as queue_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..filter.state import resolve_device
-from .mesh import _BACKEND, make_mesh, set_mesh
+from .mesh import _BACKEND, NCCL_MIXING, make_mesh, set_mesh
 
 
 #: seconds a collective may wait before it fails instead of hanging
@@ -45,13 +46,19 @@ def init_process(rank: int, world: int, device, init_file: str,
     ``cuda`` (card ``rank``), ``gloo`` for ``cpu``, rendezvous through the
     file ``init_file`` (the same path on every rank; it must not exist
     yet). A collective that waits longer than :data:`COLLECTIVE_TIMEOUT_S`
-    fails instead of hanging. Returns this rank's device.
+    fails instead of hanging. An NCCL group is opened with NCCL's support
+    for mixing captured and uncaptured launches off
+    (``NCCL_GRAPH_MIXING_SUPPORT=0`` unless the environment sets it), as
+    ``mesh.make_mesh`` requires. Returns this rank's device.
 
     ``backend="gloo"`` with ``cuda`` is asked for by name, never chosen:
     ``gloo`` moves CUDA tensors through the host, and every rank then
     computes on card ``rank % cards`` — several ranks may share one card,
     which NCCL refuses."""
-    dev = resolve_device(device)
+    # the device's kind only: naming the current card here would open a
+    # CUDA context on card 0 in every rank before it chose its own
+    dev = torch.device(device) if device is not None else resolve_device(
+        None)
     backend = backend or _BACKEND[dev.type]
     kw = {}
     if dev.type == "cuda":
@@ -66,6 +73,7 @@ def init_process(rank: int, world: int, device, init_file: str,
         torch.cuda.set_device(dev)
         if backend == "nccl":
             kw["device_id"] = dev
+            os.environ.setdefault(NCCL_MIXING, "0")
     dist.init_process_group(
         backend, init_method=f"file://{os.path.abspath(init_file)}",
         rank=rank, world_size=world,
@@ -207,6 +215,57 @@ def ambient(fn: Callable, mesh, *args, shard_sqrt: bool = False) -> Any:
     :func:`run_cases` case of a function that reads the ambient mesh."""
     with set_mesh(mesh, shard_sqrt=shard_sqrt):
         return fn(*args)
+
+
+def run_session(mesh, cfg, fixture: str, n_frames: int, chunk: int,
+                min_step_xy: Optional[float] = None,
+                shard_sqrt: bool = False) -> dict:
+    """A ``SlamSession`` on the committed fixture ``fixture`` (loaded with
+    ``min_step_xy``) for ``n_frames`` frames in chunks of ``chunk``, on
+    ``mesh``'s device under ``set_mesh(mesh, shard_sqrt=shard_sqrt)`` (or,
+    with ``mesh`` None, on the CPU with no mesh), every chunk's dispatch
+    under the host-read guard (``ops.host_reads``): the state after frame
+    0, each frame's telemetry (pose, map size, visible and matched
+    landmarks, the repair counters), the final state, and the distributed
+    factorizations made and those not finite (``dist_chol``'s counters)."""
+    from ..api import SlamSession
+    from ..io import fixtures
+    from ..ops import control
+    from ..ops.host_reads import guarded
+    from . import dist_chol
+
+    seq, track, _, _ = fixtures.load(fixture, min_step_xy=min_step_xy)
+    dev = torch.device("cpu") if mesh is None else mesh.device
+    with (contextlib.nullcontext() if mesh is None
+          else set_mesh(mesh, shard_sqrt=shard_sqrt)):
+        sess = SlamSession(cfg, seq, track, device=dev)
+        state0 = control.tree_map(torch.clone, sess.state)
+        # one frame through every branch, thrown away, as before a capture:
+        # it builds the per-device constants that the guarded chunks read
+        with control.warmup():
+            sess._frames(control.tree_map(torch.clone, state0),
+                         torch.from_numpy(sess._stack_window(1, 1)).to(dev),
+                         sess._odo[:2], True)
+        dist_chol.reset_device_counts(dev)
+        while len(sess.records) < n_frames:
+            pending = guarded(sess._dispatch_chunk,
+                              min(chunk, n_frames - len(sess.records)))
+            if pending is None:
+                raise ValueError(f"{fixture}: a redirection or the end of "
+                                 f"the track within {n_frames} frames")
+            sess._finish_chunk(pending)
+        counts = dist_chol.device_counts(dev)
+    recs = sess.records
+
+    def per_frame(key):
+        return np.array([getattr(r, key) for r in recs])
+
+    return dict(state0=state0, state=sess.state, pose=per_frame("pose"),
+                **{k: per_frame(k) for k in (
+                    "n_map", "n_visible", "n_matched", "n_repairs",
+                    "n_escalations", "n_skipped")},
+                dist_chol_calls=counts["calls"],
+                dist_chol_not_finite=counts["not_finite"])
 
 
 def to_device(obj: Any, device: torch.device) -> Any:

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Any, Optional, Tuple
 
 import torch
@@ -41,6 +42,14 @@ from ..ops.linalg import AMBIENT
 MAP_AXIS = "map"
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+#: NCCL's support for mixing captured and uncaptured launches on one
+#: communicator. On (NCCL's default), a graph with a collective inside a
+#: conditional body (``control.if_``: ``dist_chol``'s 1e-3 rung) fails to
+#: instantiate ("invalid argument") at more than one rank (four H100s,
+#: NCCL 2.28): the synchronization the setting adds is not something a body
+#: may hold. Off, NCCL leaves it to the caller that no uncaptured launch
+#: follows a graph launch still in flight: :meth:`Mesh._settle`.
+NCCL_MIXING = "NCCL_GRAPH_MIXING_SUPPORT"
 #: the backends a mesh on each device type may run (gloo on cuda only when
 #: the process group was opened with it by name: ``launch.init_process``)
 _TAKES = {"cuda": ("nccl", "gloo"), "cpu": ("gloo",)}
@@ -75,13 +84,23 @@ class Mesh:
         differ in size by at most one; equal when ``size`` divides ``n``)."""
         return n * self.rank // self.size, n * (self.rank + 1) // self.size
 
+    def _settle(self) -> None:
+        """Before an uncaptured collective of an NCCL mesh, wait until the
+        card has finished what was queued, graph launches included (NCCL
+        runs with :data:`NCCL_MIXING` off). Inside a capture this does
+        nothing: the graph's launches are ordered by its own edges."""
+        if self.captures and not torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize(self.device)
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of ``t`` over the ranks, in place; returns ``t``."""
+        self._settle()
         dist.all_reduce(t, group=self.group)
         return t
 
     def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
+        self._settle()
         dist.broadcast(t, src=dist.get_global_rank(self.group, src),
                        group=self.group)
         return t
@@ -91,6 +110,7 @@ class Mesh:
         in rank order."""
         t = t.contiguous()
         out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+        self._settle()
         dist.all_gather(list(out.chunk(self.size)), t, group=self.group)
         return out
 
@@ -104,7 +124,8 @@ def make_mesh(n_devices: Optional[int] = None, device=None
 
     The device must suit the group's backend (``cpu`` needs ``gloo``;
     ``cuda`` takes NCCL, or ``gloo`` where the group was opened with it by
-    name). A smaller mesh is a new group of ranks ``0 .. n - 1``:
+    name; NCCL with :data:`NCCL_MIXING` off). A smaller mesh is a new
+    group of ranks ``0 .. n - 1``:
     every rank of the default group must make the call, and the ranks
     outside the mesh get ``None``."""
     if not dist.is_initialized():
@@ -128,8 +149,15 @@ def make_mesh(n_devices: Optional[int] = None, device=None
     if dist.get_world_size(group) != n:
         raise RuntimeError(f"mesh group has {dist.get_world_size(group)} "
                            f"ranks, wanted {n}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    if backend == "nccl" and dev.index != torch.cuda.current_device():
+        # the group's communicator was opened on the current card
+        # (``launch.init_process`` makes it the rank's own)
+        raise ValueError(f"an NCCL mesh computes on its rank's card "
+                         f"cuda:{torch.cuda.current_device()}, not {dev}")
+    if backend == "nccl" and os.environ.get(NCCL_MIXING) != "0":
+        raise ValueError(f"an NCCL mesh needs {NCCL_MIXING}=0 in the "
+                         f"environment before its process group opens "
+                         f"(launch.init_process sets it)")
     return Mesh(group, dist.get_rank(group), n, dev, backend)
 
 
