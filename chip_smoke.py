@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile  # the smoke, then a profiled chunk
     python3 chip_smoke.py --profile --config 3   # ... of config 3
     python3 chip_smoke.py --profile --config 4   # ... of config 4
+    python3 chip_smoke.py --marks    # the build and the stage marks alone
     python3 chip_smoke.py --baseline DIR   # ... the recurrence and linalg
                                            # kernels timed against DIR's,
                                            # R3 with DIR's gmw_chol
@@ -4522,6 +4523,171 @@ def profile_chunk(sess, chunk: int, label: str, n_chunks: int = 1) -> dict:
     return res
 
 
+def _mark_log(doc: dict) -> list:
+    """(stage, start us, end us) of every stage mark in a Chrome trace, in
+    start order."""
+    marks = []
+    for e in doc["traceEvents"] if isinstance(doc, dict) else doc:
+        name = str(e.get("name", ""))
+        i = name.find("stage_mark_")
+        if e.get("cat") != "kernel" or i < 0:
+            continue
+        stage = name[i + len("stage_mark_"):].split("_kernel")[0]
+        marks.append((stage, float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return sorted(marks, key=lambda m: m[1])
+
+
+def phase_marks(dev) -> dict:
+    """The stage marks (``vision.stage_mark``) on the card: (a)
+    ``%globaltimer``'s resolution, from 400 replays of a graph of two
+    back-to-back marks, each replay's interval read alone, and the mean
+    interval of 256 back-to-back marks in one graph; (b) config 1 by
+    ``run(chunk=8)`` (a detect and a tracking key, the host gate forced both
+    ways) and by ``step()``, profiled: each replay's marks are ``start``
+    and then the seven of each frame in order, and each stage's ms a frame
+    from the trace's marks beside the accumulators' (``stage_times``) over
+    the same frames; (c) a span site's host cost with no profiler and
+    under one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io import fixtures
+    from cv_monoslam_tpu_torch.ops import control, vision
+    from cv_monoslam_tpu_torch.utils import profiling
+
+    out = {}
+    normal = ["motion", "measure", "associate", "update", "maintain",
+              "detect", "telemetry"]
+
+    # (a) resolution and back-to-back interval
+    def graph_of(stages):
+        side = control.capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for st in stages:                         # builds the buffers
+                vision.stage_mark(dev, st)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for st in stages:
+                vision.stage_mark(dev, st)
+        return g
+
+    pair = graph_of(["start", "motion"])
+    deltas = []
+    for _ in range(400):
+        vision.reset_stage_times(dev)
+        pair.replay()
+        deltas.append(vision.stage_times(dev)["motion"])
+    d = np.asarray(deltas[16:])
+    steps = np.diff(np.unique(d))
+    out["pair_ns"] = dict(min=int(d.min()), median=float(np.median(d)),
+                          max=int(d.max()), distinct=int(len(np.unique(d))),
+                          smallest_step=int(steps.min()) if len(steps) else 0)
+    chain = graph_of(["start"] + ["motion"] * 256)
+    vision.reset_stage_times(dev)
+    for _ in range(10):
+        chain.replay()
+    st = vision.stage_times(dev)
+    out["chain_ns_per_mark"] = st["motion"] / (10 * 256)
+    log(f"[marks] (a) %globaltimer, two back-to-back marks in a graph, 384 "
+        f"replays: {out['pair_ns']} ns; 256 marks in a row: "
+        f"{out['chain_ns_per_mark']:.1f} ns a mark")
+
+    # (b) order and the accumulators against the trace
+    seq, track, _, _ = fixtures.load("bench1_arc")
+    cfg = SlamConfig(**CONFIG1)
+    sess = SlamSession(cfg, seq, track, device=dev)
+    sess.detect_host_gate = True
+    sess.step_chunk(8)                                # (8, detect)
+    sess._last_matched = cfg.min_num
+    sess.step_chunk(8)                                # (8, tracking)
+    sess._last_matched = 0
+    sess.step()                                       # the step graph
+    problems = []
+
+    def chunks():
+        # the tracking key twice, then the detect key twice
+        for matched in (cfg.min_num, cfg.min_num, 0, 0):
+            sess._last_matched = matched
+            sess.step_chunk(8)
+
+    for label, run, replays, frames_k in (
+            ("run(chunk=8)", chunks, 4, 8),
+            ("step()", lambda: [sess.step() for _ in range(8)], 8, 1)):
+        torch.cuda.synchronize()
+        before = vision.stage_times(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        after = vision.stage_times(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                marks = _mark_log(json.load(f))
+        seqs, cur = [], None
+        for stage, a, b in marks:
+            if stage == "start":
+                cur = []
+                seqs.append(cur)
+            elif cur is not None:
+                cur.append(stage)
+        bad = [i for i, sq in enumerate(seqs) if sq != normal * frames_k]
+        if len(seqs) != replays or bad:
+            problems.append(f"{label}: {len(seqs)} replays, out of order: "
+                            f"{[seqs[i] for i in bad[:2]]}")
+        frames = after["frames"] - before["frames"]
+        acc = {k: (after[k] - before[k]) / max(frames, 1) / 1e6
+               for k in vision.STAGES}
+        from_trace = {k: 0.0 for k in vision.STAGES}
+        prev = None
+        for stage, a, b in marks:
+            if stage != "start" and prev is not None:
+                from_trace[stage] += (b - prev) / 1e3
+            prev = b
+        n_tr = sum(1 for m in marks if m[0] == "telemetry")
+        from_trace = {k: v / max(n_tr, 1) for k, v in from_trace.items()}
+        out[label] = dict(replays=len(seqs), frames=frames,
+                          accumulators_ms=acc, trace_marks_ms=from_trace)
+        log(f"[marks] (b) config 1 {label}: {len(seqs)} replays, {frames} "
+            f"frames marked, order {'ok' if not bad else 'WRONG'}; ms a "
+            f"frame, accumulators / trace marks: " + ", ".join(
+                f"{k} {acc[k]:.4f} / {from_trace[k]:.4f}"
+                for k in vision.STAGES if k != "reset"))
+
+    # (c) a span site's host cost
+    n = 200000
+    for _ in range(1000):
+        with profiling.span("slam.cost"):
+            pass
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with profiling.span("slam.cost"):
+            pass
+    off = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pass
+    loop = (time.perf_counter() - t0) / n * 1e6
+    m = 2000
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.perf_counter()
+        for _ in range(m):
+            with profiling.span("slam.cost"):
+                pass
+        on = (time.perf_counter() - t0) / m * 1e6
+    out["span_us"] = dict(off=off, on=on, empty_loop=loop)
+    log(f"[marks] (c) a span site on the host: {off:.3f} us with no "
+        f"profiler, {on:.3f} us under one (an empty loop turn {loop:.3f} "
+        f"us)")
+    if problems:
+        raise AssertionError("stage marks: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4533,6 +4699,9 @@ def main() -> int:
                          "commit's): phases 3b and 3c time its four "
                          "recurrence kernels and this tree's in turns on "
                          "the same inputs")
+    ap.add_argument("--marks", action="store_true",
+                    help="instead of the smoke, the build and the stage "
+                         "marks' phase alone")
     ap.add_argument("--ranks", type=int, choices=(1, 4),
                     help="instead of the smoke, the multi-device paths on "
                          "this many NCCL ranks, a card each (fails on a "
@@ -4561,6 +4730,10 @@ def main() -> int:
         return out
 
     run(phase_build)
+    marks = run(phase_marks, dev)
+    if args.marks:
+        log(json.dumps({"marks": marks}))
+        return 0
     errs = run(phase_kernel_checks, dev)
     times = run(phase_kernel_times, dev)
     baseline = load_baseline(args.baseline) if args.baseline else None

@@ -54,6 +54,18 @@ After a graph chunk ``state`` IS the session's static state buffers: the
 next chunk overwrites them in place (clone what must be kept). A state the
 caller (``resume``, a watchdog recovery) or an eager step puts there is
 copied into the buffers by the next graph chunk.
+
+Tracing (``utils/profiling.py``; a new session zeroes its totals and the
+device's stage times): host spans ``slam.run``, ``slam.step``,
+``slam.dispatch``, ``slam.finish``, ``slam.window``, ``slam.upload``,
+``slam.replay``, ``slam.fetch``, ``slam.prefetch``, ``slam.wait``,
+``slam.frames_host``, ``slam.capture`` and ``slam.refine``, each carrying
+its frame's counter (a chunk's: its first frame's); counters ``frames``,
+``chunks_detect``, ``chunks_track``, ``pinned_buffers`` and ``captures``.
+On the device each replay opens with a ``start`` stage mark and each frame's
+telemetry row is followed by a ``telemetry`` mark
+(``ops.vision.stage_mark``; the stages between are marked in
+``filter/srukf.step_with``).
 """
 
 from __future__ import annotations
@@ -69,14 +81,15 @@ import torch
 
 from .config import SlamConfig
 from .filter.srukf import initialize, slam_step
-from .ops import control
+from .ops import control, vision
 from .ops.linalg import AMBIENT
 from .filter.state import (FilterState, init_state, resolve_device,
                            torch_dtype)
 from .io.dataset import ImageSequence, OdometryTrack
 from .io.recording import RunRecorder
 from .utils.checkpoint import load_checkpoint, save_checkpoint
-from .utils.profiling import FrameTimer
+from .utils import profiling
+from .utils.profiling import count, span
 from .utils.watchdog import Watchdog
 
 # Telemetry packing: the per-frame outputs of slam_step are merged into ONE
@@ -140,6 +153,10 @@ class FrameRecord:
     n_visible: int
     n_matched: int
     redirected: bool
+    #: host seconds up to this frame's record: in a ``run``, the time since
+    #: the previous record's materialization (or the run's start) over the
+    #: frames materialized together, so a run's records sum to its wall
+    #: time; a lone ``step`` or ``step_chunk``, from its own start
     wall_time: float
     #: cumulative covariance-repair counters up to this frame: minor
     #: floors / escalated (reset-grade) repairs / skipped updates
@@ -177,7 +194,9 @@ class SlamSession:
         self.backend = backend
         #: one dict per backend solve, in order (window BA or pose graph)
         self.refinements: List[dict] = []
-        self.timer = FrameTimer()
+        #: inside ``run``: the host time the next record's wall time counts
+        #: from (the previous materialization or the run's start)
+        self._since: Optional[float] = None
         #: chunk-level detect-when-starved gating: a chunk runs the
         #: detection pipeline only when the latest match count seen is
         #: below ``min_num`` (the reference's trigger, SLAM.cpp:552-562,
@@ -224,6 +243,8 @@ class SlamSession:
                 np.dtype(cfg.dtype))
         self._odo = torch.as_tensor(self._odo_host, device=self.device)
         self._redirect = np.asarray(track.redirect)
+        profiling.reset()
+        vision.reset_stage_times(self.device)
 
         state = init_state(cfg, theta0=float(track.theta[0]),
                            max_stored=max_stored, device=self.device)
@@ -245,7 +266,19 @@ class SlamSession:
         crosses as uint8 and is cast on the device)."""
         return torch.as_tensor(img).to(self.device).to(self._dtype)
 
+    def _wall(self, t0: float) -> float:
+        """Host seconds for the records materialized now: in a ``run``,
+        since the previous materialization (pipelined chunks overlap, so a
+        chunk's own dispatch-to-finish interval would count the overlap
+        twice), else since ``t0``."""
+        now = time.perf_counter()
+        since = t0 if self._since is None else self._since
+        if self._since is not None:
+            self._since = now
+        return now - since
+
     def _record(self, k: int, tele: dict, wall: float) -> FrameRecord:
+        count("frames")
         rec = FrameRecord(
             frame=k, pose=tele["pose"], pose_sqrt_cov=tele["pose_sqrt_cov"],
             n_map=int(tele["n_map"]), n_visible=int(tele["n_visible"]),
@@ -296,13 +329,15 @@ class SlamSession:
                 tele["lm_xyz"], pose_sqrt_cov=tele["pose_sqrt_cov"],
                 active=tele["lm_active"])
             if kf is not None and len(self.backend.keyframes) >= 2:
-                if len(self.backend.loop_edges) > n_loops:
-                    # a loop edge appeared: global pose-graph relaxation
-                    # (the engine's real loop closure — the analogue of the
-                    # reference's redirection splice, SLAM.cpp:948-1015)
-                    out = self.backend.optimize_graph()
-                else:
-                    out = self.backend.refine_window()
+                with span("slam.refine", rec.frame):
+                    if len(self.backend.loop_edges) > n_loops:
+                        # a loop edge appeared: global pose-graph
+                        # relaxation (the engine's real loop closure — the
+                        # analogue of the reference's redirection splice,
+                        # SLAM.cpp:948-1015)
+                        out = self.backend.optimize_graph()
+                    else:
+                        out = self.backend.refine_window()
                 if out is not None:
                     self.refinements.append(out)
 
@@ -330,23 +365,31 @@ class SlamSession:
         k = self.counter
         if k >= len(self.track):
             return None
-        self.timer.start()
-        host = torch.from_numpy(self._prep_image(
-            self.images.get(int(self.track.frame_id[k])))[None])
-        if self.device.type == "cuda":
-            img = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            img = host.to(self.device)
-        fn = self._chunk_fn(1, True, bool(self._redirect[k]))
-        self.state, rows = fn(self.state, img, self._odo[k - 1:k + 1])
-        rows, done = self._fetch_rows(rows)
-        if done is not None:
-            done.synchronize()
-        tele = _unpack_row(rows.numpy()[0], self.cfg.max_landmarks)
-        rec = self._record(k, tele, self.timer.stop())
-        self.counter += 1
-        self._last_matched = rec.n_matched
-        self._post_frame(rec, tele)
+        with span("slam.step", k):
+            t0 = time.perf_counter()
+            with span("slam.upload", k):
+                host = torch.from_numpy(self._prep_image(
+                    self.images.get(int(self.track.frame_id[k])))[None])
+                if self.device.type == "cuda":
+                    count("pinned_buffers")
+                    img = host.pin_memory().to(self.device,
+                                               non_blocking=True)
+                else:
+                    img = host.to(self.device)
+            fn = self._chunk_fn(1, True, bool(self._redirect[k]))
+            with span("slam.replay", k):
+                self.state, rows = fn(self.state, img,
+                                      self._odo[k - 1:k + 1])
+            rows, done = self._fetch_rows(rows, k)
+            if done is not None:
+                with span("slam.wait", k):
+                    done.synchronize()
+            with span("slam.frames_host", k):
+                tele = _unpack_row(rows.numpy()[0], self.cfg.max_landmarks)
+                rec = self._record(k, tele, self._wall(t0))
+                self.counter += 1
+                self._last_matched = rec.n_matched
+                self._post_frame(rec, tele)
         return rec
 
     # -- the chunk machinery ------------------------------------------------
@@ -365,6 +408,7 @@ class SlamSession:
         host = torch.from_numpy(self._stack_window(ks, k))
         if self.device.type != "cuda":
             return host.to(self.device), None
+        count("pinned_buffers")
         return host.pin_memory().to(self.device, non_blocking=True), None
 
     def _stack_window(self, ks: int, k: int) -> np.ndarray:
@@ -380,6 +424,7 @@ class SlamSession:
         if self.device.type != "cuda":
             self._img_prefetch = ((ks, k), host.to(self.device), None, None)
             return
+        count("pinned_buffers")
         pinned = host.pin_memory()
         main = torch.cuda.current_stream(self.device)
         if self._copy_stream is None:
@@ -417,14 +462,22 @@ class SlamSession:
         layout; its collectives are captured inside), captured at its
         first use; else the eager loop. ``detect=False`` leaves the
         detection pipeline out; ``redirect`` runs every frame by the
-        redirect branch (``step`` of a redirection frame, k = 1)."""
+        redirect branch (``step`` of a redirection frame, k = 1). A capture
+        is the span ``slam.capture``; it first waits for the card (as the
+        capture would), in a ``slam.wait`` of its own, so that its other
+        time holds no replay's."""
         if not self._graph_route():
             return lambda state, imgs, odo: self._frames(
                 state, imgs, odo, detect, redirect)
         key = (k, detect, redirect, AMBIENT.get())
         if key not in self._chunk_steps:
             t0 = time.perf_counter()
-            self._chunk_steps[key] = self._capture_chunk(k, detect, redirect)
+            count("captures")
+            with span("slam.capture", self.counter):
+                with span("slam.wait", self.counter):
+                    torch.cuda.synchronize(self.device)
+                self._chunk_steps[key] = self._capture_chunk(k, detect,
+                                                             redirect)
             self.capture_s[key] = time.perf_counter() - t0
         g = self._chunk_steps[key]
 
@@ -441,13 +494,17 @@ class SlamSession:
     def _frames(self, state: FilterState, imgs: torch.Tensor,
                 odo: torch.Tensor, detect: bool, redirect: bool = False):
         """``slam_step`` over the window ``imgs`` (its k + 1 odometry rows
-        ``odo``): (the state after it, the (k, row) packed telemetry)."""
+        ``odo``): (the state after it, the (k, row) packed telemetry). Stage
+        marks open the window (``start``) and follow each frame's row
+        (``telemetry``)."""
+        vision.stage_mark(imgs.device, "start")
         imgs = imgs.to(self._dtype)
         rows = []
         for i in range(imgs.shape[0]):
             state, out = slam_step(state, imgs[i], odo[i], odo[i + 1],
                                    redirect, self.cfg, allow_detect=detect)
             rows.append(_pack_row(out, self.cfg.max_landmarks))
+            vision.stage_mark(imgs.device, "telemetry")
         return state, torch.stack(rows)
 
     def _capture_chunk(self, k: int, detect: bool,
@@ -491,60 +548,68 @@ class SlamSession:
         if k <= 0 or self._redirect[self.counter:self.counter + k].any():
             return None
         ks = self.counter
-        t0 = time.perf_counter()
-        # host-gated detection cadence: the reference's detect-when-starved
-        # trigger (SLAM.cpp:552-562) decided per CHUNK from the latest
-        # materialized match telemetry
-        detect = True
-        if self.detect_host_gate:
-            detect = self._last_matched < (
-                self.cfg.min_num + (self.detect_gate_margin or 0))
-        self.chunk_detect.append(detect)
-        imgs, slot = self._window_images(ks, k)
-        self.state, rows = self._chunk_fn(k, detect)(
-            self.state, imgs, self._odo[ks - 1:ks + k])
-        if slot is not None:                       # window consumed
-            slot[1] = torch.cuda.current_stream(self.device).record_event()
-        host, done = self._fetch_rows(rows)
-        # prefetch the NEXT window's images while the device computes
-        ns = ks + k
-        if (ns + k <= len(self.track)
-                and not self._redirect[ns:ns + k].any()):
-            self._prefetch_images(ns, k)
-        self.counter += k
+        with span("slam.dispatch", ks):
+            t0 = time.perf_counter()
+            # host-gated detection cadence: the reference's
+            # detect-when-starved trigger (SLAM.cpp:552-562) decided per
+            # CHUNK from the latest materialized match telemetry
+            detect = True
+            if self.detect_host_gate:
+                detect = self._last_matched < (
+                    self.cfg.min_num + (self.detect_gate_margin or 0))
+            self.chunk_detect.append(detect)
+            count("chunks_detect" if detect else "chunks_track")
+            with span("slam.window", ks):
+                imgs, slot = self._window_images(ks, k)
+            fn = self._chunk_fn(k, detect)
+            with span("slam.replay", ks):
+                self.state, rows = fn(self.state, imgs,
+                                      self._odo[ks - 1:ks + k])
+            if slot is not None:                       # window consumed
+                slot[1] = torch.cuda.current_stream(
+                    self.device).record_event()
+            host, done = self._fetch_rows(rows, ks)
+            # prefetch the NEXT window's images while the device computes
+            ns = ks + k
+            if (ns + k <= len(self.track)
+                    and not self._redirect[ns:ns + k].any()):
+                with span("slam.prefetch", ks):
+                    self._prefetch_images(ns, k)
+            self.counter += k
         return dict(rows=host, done=done, ks=ks, k=k, t0=t0)
 
-    def _fetch_rows(self, rows: torch.Tensor):
+    def _fetch_rows(self, rows: torch.Tensor, frame: Optional[int] = None):
         """The telemetry ``rows`` on the host: on the card a copy into pinned
         memory queued right behind the replay, so no other graph's replay
         can overwrite its pool first, and the event that copy completes
         (None on the CPU)."""
-        if self.device.type != "cuda":
-            return rows, None
-        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-        host.copy_(rows, non_blocking=True)
-        return host, torch.cuda.current_stream(self.device).record_event()
+        with span("slam.fetch", frame):
+            if self.device.type != "cuda":
+                return rows, None
+            count("pinned_buffers")
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            return host, torch.cuda.current_stream(self.device).record_event()
 
     def _finish_chunk(self, pending: dict) -> List[FrameRecord]:
         """Materialize a dispatched chunk's telemetry (wait on its event)
         and run the per-frame host side effects."""
         ks, k = pending["ks"], pending["k"]
-        if pending["done"] is not None:
-            pending["done"].synchronize()
-        rows = pending["rows"].numpy()
-        # wall time from THIS chunk's dispatch timestamp (the shared
-        # FrameTimer slot is overwritten when the next chunk dispatches
-        # before this one finishes in the pipelined loop)
-        wall = self.timer.record(time.perf_counter() - pending["t0"],
-                                 frames=k)
-        M = self.cfg.max_landmarks
-        recs = []
-        for i in range(k):
-            tele = _unpack_row(rows[i], M)
-            recs.append(self._record(ks + i, tele, wall / k))
-            self._post_frame(recs[-1], tele)
-        if recs:
-            self._last_matched = recs[-1].n_matched
+        with span("slam.finish", ks):
+            if pending["done"] is not None:
+                with span("slam.wait", ks):
+                    pending["done"].synchronize()
+            with span("slam.frames_host", ks):
+                rows = pending["rows"].numpy()
+                wall = self._wall(pending["t0"])
+                M = self.cfg.max_landmarks
+                recs = []
+                for i in range(k):
+                    tele = _unpack_row(rows[i], M)
+                    recs.append(self._record(ks + i, tele, wall / k))
+                    self._post_frame(recs[-1], tele)
+                if recs:
+                    self._last_matched = recs[-1].n_matched
         return recs
 
     def step_chunk(self, k: int) -> List[FrameRecord]:
@@ -607,6 +672,16 @@ class SlamSession:
                 f"min_num={self.cfg.min_num}: the stale gate can run "
                 f"starved for up to 2*chunk frames with no cushion",
                 stacklevel=2)
+        with span("slam.run", self.counter):
+            self._since = time.perf_counter()
+            try:
+                self._run(n, chunk, drop_tail, pipelined)
+            finally:
+                self._since = None
+        return self.trajectory
+
+    def _run(self, n: int, chunk: int, drop_tail: bool,
+             pipelined: bool) -> None:
         if chunk > 1:
             done = 0          # frames with records materialized
             dispatched = 0    # frames consumed by the device
@@ -635,11 +710,10 @@ class SlamSession:
                         dispatched += 1
                         continue
                 break
-            return self.trajectory
+            return
         for _ in range(n):
             if self.step() is None:
                 break
-        return self.trajectory
 
     @property
     def trajectory(self) -> np.ndarray:

@@ -109,14 +109,26 @@ def cmd_run(args) -> int:
         sess = SlamSession(cfg, images, track, **kw)
 
     n = args.frames if (args.images or args.video) else None
-    sess.run(n, chunk=args.chunk)
+    if args.trace:
+        from .utils.profiling import trace
+
+        with trace(args.trace):
+            sess.run(n, chunk=args.chunk)
+        print(f"trace -> {os.path.join(args.trace, 'trace.json')}")
+    else:
+        sess.run(n, chunk=args.chunk)
     traj = sess.trajectory
     np.savez(os.path.join(out_dir, "trajectory.npz"),
              poses=traj,
              frames=np.array([r.frame for r in sess.records]),
              wall_times=np.array([r.wall_time for r in sess.records]))
-    print(f"frames: {len(sess.records)}  "
-          f"mean step: {sess.timer.mean_time * 1e3:.1f} ms")
+    from .ops.vision import stage_times
+    from .utils.profiling import report
+
+    wall = sum(r.wall_time for r in sess.records)
+    print(f"frames: {len(sess.records)}  wall: {wall:.3f} s "
+          f"({wall * 1e3 / max(len(sess.records), 1):.2f} ms a frame)")
+    print(report(stage_times(sess.device)))
     if gt_xy is not None and len(sess.records):
         print(f"ATE: {sess.ate(gt_xy):.4f} m")
     if backend is not None and backend.keyframes:
@@ -222,6 +234,9 @@ def main(argv=None) -> int:
     pr.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu must be asked "
                          "for)")
+    pr.add_argument("--trace", metavar="DIR",
+                    help="profile the run: DIR/trace.json (Chrome trace) "
+                         "with the host spans and the device's stage marks")
     pr.set_defaults(fn=cmd_run)
 
     ps = sub.add_parser("synth", help="generate/cache a synthetic sequence")

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig
-from ..ops import control
+from ..ops import control, vision
 from ..frontend.detect import (candidate_filters, escalate_raws,
                                gftt_candidates, select_new_corners)
 from ..frontend.matching import data_association
@@ -125,7 +125,10 @@ def slam_step(state: FilterState, image: torch.Tensor,
 
 def _predict_and_associate(state, cache, image, cfg):
     state, cache = measurement_predict(state, cache, cfg)
-    return data_association(state, image, cfg), cache
+    vision.stage_mark(image.device, "measure")
+    state = data_association(state, image, cfg)
+    vision.stage_mark(image.device, "associate")
+    return state, cache
 
 
 def step_with(predict_and_associate, state: FilterState,
@@ -135,16 +138,27 @@ def step_with(predict_and_associate, state: FilterState,
     """:func:`slam_step` with its measurement prediction and data
     association given as ``predict_and_associate(state, cache, image,
     cfg) -> (state, cache)``: the per-landmark stages, which a
-    landmark-sharded step splits across ranks (``parallel/spmd.py``)."""
+    landmark-sharded step splits across ranks (``parallel/spmd.py``); it
+    marks the ends of ``measure`` and ``associate``.
+
+    Stage marks (``ops.vision.stage_mark``) close each stage on the device:
+    ``motion``, ``measure``, ``associate``, ``update``, ``maintain``, then
+    ``detect`` after the detection gate (taken or not, and with
+    ``allow_detect`` off); a redirect frame marks ``reset`` and ``detect``."""
+    dev = image.device
     if redirect:
         state = redirect_reset(state, odo_cur[2], cfg)
+        vision.stage_mark(dev, "reset")
         state = add_features(state, image, cfg, is_redirect=True,
                              should_add=True)
     else:
         state, cache = motion_predict(state, odo_prev, odo_cur, cfg)
+        vision.stage_mark(dev, "motion")
         state, cache = predict_and_associate(state, cache, image, cfg)
         state = kalman_update(state, cache, cfg)
+        vision.stage_mark(dev, "update")
         state = update_features(state, cfg)
+        vision.stage_mark(dev, "maintain")
     if allow_detect and not redirect:
         n_matched = torch.sum(state.lm.matched & state.lm.active)
         if cfg.gate_detection:
@@ -155,6 +169,7 @@ def step_with(predict_and_associate, state: FilterState,
         else:
             state = add_features(state, image, cfg,
                                  should_add=n_matched < cfg.min_num)
+    vision.stage_mark(dev, "detect")
 
     state = replace(state, frame=state.frame + 1)
     lm = state.lm

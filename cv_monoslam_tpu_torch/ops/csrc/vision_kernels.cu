@@ -11,7 +11,8 @@
 // Launch counts: a launch captured in a CUDA graph runs on every replay
 // without a call of its wrapper, so thread 0 of block 0 of every launch adds
 // one to the int32 device counter the wrapper passes in
-// (vision.device_counts reads them).
+// (vision.device_counts reads them). The stage marks at the end of the file
+// time a frame's stages on the device (vision.stage_times reads them).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -632,6 +633,53 @@ __global__ void warp_ncc_score_map_kernel(const float* __restrict__ image,
 
 __global__ void empty_kernel() {}
 
+// ---------------------------------------------------------------------------
+// Stage marks: one-thread kernels between the stages of a frame, captured
+// into the frame's graph as top-level nodes. A replay hides its stages from
+// every host-side tool; these time them on the device, unprofiled.
+//
+// times (int64, in ns of %globaltimer): [0] the previous mark's time, [1 +
+// s] the total of stage s (vision.STAGES order), [1 + N_STAGES] frames.
+// A mark adds the time since the previous mark to its stage's total and
+// stores its own time; `start`, which opens each replay, only stores it, so
+// device time between replays (host path, copies, captures) is never
+// counted. A mark that finds no previous time (the buffer just zeroed)
+// stores its own only. `telemetry`, after a frame's telemetry row, also
+// counts the frame. Each stage has a kernel of its own, so that its name
+// in a profiler trace says which mark it is.
+// ---------------------------------------------------------------------------
+
+constexpr int N_STAGES = 8;
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+
+__device__ __forceinline__ void stage_mark(long long* times, int slot,
+                                           bool frame) {
+  const long long now = global_ns();
+  if (slot >= 0 && times[0] != 0) times[1 + slot] += now - times[0];
+  times[0] = now;
+  if (frame) times[1 + N_STAGES] += 1;
+}
+
+#define STAGE_MARK_KERNEL(stage, slot, frame)                         \
+  __global__ void stage_mark_##stage##_kernel(long long* times) {     \
+    stage_mark(times, slot, frame);                                   \
+  }
+
+STAGE_MARK_KERNEL(start, -1, false)
+STAGE_MARK_KERNEL(motion, 0, false)
+STAGE_MARK_KERNEL(measure, 1, false)
+STAGE_MARK_KERNEL(associate, 2, false)
+STAGE_MARK_KERNEL(update, 3, false)
+STAGE_MARK_KERNEL(maintain, 4, false)
+STAGE_MARK_KERNEL(detect, 5, false)
+STAGE_MARK_KERNEL(telemetry, 6, true)
+STAGE_MARK_KERNEL(reset, 7, false)
+
 }  // namespace
 
 extern "C" {
@@ -710,6 +758,26 @@ int cvms_warp_ncc_score_map_f32(const void* image, const void* base,
 
 int cvms_empty_launch(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// One stage mark into `times` (see above): stage -1 is `start`, 0 ... 7 the
+// stages in vision.STAGES order.
+int cvms_stage_mark(int stage, void* times, void* stream) {
+  long long* t = (long long*)times;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (stage) {
+    case -1: stage_mark_start_kernel<<<1, 1, 0, s>>>(t); break;
+    case 0: stage_mark_motion_kernel<<<1, 1, 0, s>>>(t); break;
+    case 1: stage_mark_measure_kernel<<<1, 1, 0, s>>>(t); break;
+    case 2: stage_mark_associate_kernel<<<1, 1, 0, s>>>(t); break;
+    case 3: stage_mark_update_kernel<<<1, 1, 0, s>>>(t); break;
+    case 4: stage_mark_maintain_kernel<<<1, 1, 0, s>>>(t); break;
+    case 5: stage_mark_detect_kernel<<<1, 1, 0, s>>>(t); break;
+    case 6: stage_mark_telemetry_kernel<<<1, 1, 0, s>>>(t); break;
+    case 7: stage_mark_reset_kernel<<<1, 1, 0, s>>>(t); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,9 @@ what the kernels are tested against on the card. Every kernel counts its
 own launches on the device (:func:`device_counts`): a launch captured in a
 CUDA graph runs on every replay without a call of its wrapper, and inside a
 conditional body only when its branch is taken, which the host cannot see.
-Launches of the warm-up frame before a capture are not counted.
+Launches of the warm-up frame before a capture are not counted. Stage marks
+(:func:`stage_mark`, one-thread kernels between a frame's stages) time the
+stages of a replayed frame on the device; :func:`stage_times` reads them.
 ``normalized_templates.calls`` counts the plain normalization, so a run can
 show that the CUDA path never takes it.
 """
@@ -50,6 +52,7 @@ _SIGNATURES = {
     "cvms_warp_bilinear_f32": [_P] * 4 + [_I] * 3 + [_P, _P],
     "cvms_warp_ncc_score_map_f32": [_P] * 7 + [_I] * 9 + [_P, _P],
     "cvms_empty_launch": [_P],
+    "cvms_stage_mark": [_I, _P],
 }
 _SCAN_SIGNATURES = {
     "cvms_store_slots": [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 7,
@@ -529,6 +532,66 @@ def device_counts(dev) -> dict:
 
 def reset_device_counts(dev) -> None:
     _counts(dev).zero_()
+
+
+# ---------------------------------------------------------------------------
+# Stage marks on the device
+# ---------------------------------------------------------------------------
+
+#: the stages a frame's marks close, in the order of their slots: a normal
+#: frame marks ``motion`` ... ``detect`` (``filter/srukf.step_with``), a
+#: redirect frame ``reset`` and ``detect``; ``telemetry`` follows each
+#: frame's telemetry row (``api.SlamSession._frames``). ``start`` opens each
+#: replay and closes no stage.
+STAGES = ("motion", "measure", "associate", "update", "maintain", "detect",
+          "telemetry", "reset")
+_MARKS = {"start": -1, **{s: i for i, s in enumerate(STAGES)}}
+
+
+def _stage_buf(dev) -> torch.Tensor:
+    """The int64 (len(STAGES) + 2,) mark buffer on ``dev``: the previous
+    mark's time, each stage's total (ns), frames."""
+    dev = control.card(dev)
+    return control.cached(("stage_times", dev), lambda: torch.zeros(
+        len(STAGES) + 2, dtype=torch.int64, device=dev))
+
+
+def stage_mark(dev, stage: str) -> None:
+    """Mark the end of ``stage`` (or a replay's ``start``) on ``dev``: a
+    one-thread kernel, ``stage_mark_<stage>_kernel`` in
+    ``csrc/vision_kernels.cu``, that adds the device time (``%globaltimer``)
+    since the previous mark to the stage's total. Captured, it is a
+    top-level node of the graph (never inside a conditional body); in
+    warm-up it writes to a scratch buffer; on the CPU it does nothing."""
+    if dev.type != "cuda":
+        return
+    cap = control.capturing()
+    if cap is not None and cap.depth:
+        raise RuntimeError(f"stage mark {stage!r} inside a conditional body")
+    if control.warming():
+        buf = control.cached(("stage_scratch", control.card(dev)),
+                             lambda: torch.zeros(len(STAGES) + 2,
+                                                 dtype=torch.int64,
+                                                 device=dev))
+    else:
+        buf = _stage_buf(dev)
+    _launch(f"stage_mark_{stage}", "cvms_stage_mark", dev, _MARKS[stage],
+            buf.data_ptr())
+
+
+def stage_times(dev) -> Optional[dict]:
+    """Each stage's device time in ns and the frames marked on ``dev``
+    since the last :func:`reset_stage_times` (one device read); None off
+    the card, where nothing is marked."""
+    if torch.device(dev).type != "cuda":
+        return None
+    v = _stage_buf(dev).tolist()
+    return dict(zip(STAGES, v[1:-1]), frames=v[-1])
+
+
+def reset_stage_times(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        _stage_buf(dev).zero_()
 
 
 def store_slots_ref(mask: torch.Tensor, lid: torch.Tensor,

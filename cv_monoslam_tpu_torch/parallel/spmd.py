@@ -44,7 +44,7 @@ from ..filter.measurement import apply_prediction, prediction_rows
 from ..filter.srukf import slam_step, step_with
 from ..filter.state import FilterState, LandmarkTable, replace
 from ..frontend.matching import accept_matches, association_rows
-from ..ops import control
+from ..ops import control, vision
 from .mesh import Layout, Mesh, set_mesh
 
 
@@ -59,7 +59,10 @@ def sharded_slam_step(state: FilterState, image: torch.Tensor,
                       layout: Layout, *, allow_detect: bool = True):
     """One frame of ``slam_step`` split over ``mesh`` as ``layout`` says
     (see the module docstring). Every rank calls it with the same
-    arguments; returns (new_state, outputs), the same on every rank."""
+    arguments; returns (new_state, outputs), the same on every rank. A
+    ``start`` stage mark opens it (``ops.vision.stage_mark``), as it opens
+    each replay of a session's graph."""
+    vision.stage_mark(image.device, "start")
     with set_mesh(mesh, shard_sqrt=layout.shard_sqrt):
         if layout.shard_sqrt:
             return slam_step(state, image, odo_prev, odo_cur, redirect, cfg,
@@ -147,13 +150,16 @@ def _predict_and_associate_sharded(state: FilterState, cache, image, cfg,
     pred = prediction_rows(state, cache, cfg, lo, hi)
     mine = apply_prediction(replace(state, lm=_slots(state.lm, lo, hi)),
                             cache, pred)[0]
+    vision.stage_mark(image.device, "measure")
     accepted, match_px, patches = association_rows(mine, image, cfg)
     rows = dict(pred, accepted=accepted, match_px=match_px, patches=patches)
     every = _unpack(mesh.all_gather(_pack(rows, state.x.dtype)), rows)
     state, cache = apply_prediction(state, cache,
                                     {k: every[k] for k in pred})
-    return accept_matches(state, every["accepted"], every["match_px"],
-                          every["patches"], cfg), cache
+    state = accept_matches(state, every["accepted"], every["match_px"],
+                           every["patches"], cfg)
+    vision.stage_mark(image.device, "associate")
+    return state, cache
 
 
 def _slots(lm: LandmarkTable, lo: int, hi: int) -> LandmarkTable:

@@ -51,6 +51,7 @@ from cv_monoslam_tpu_torch.io import fixtures as tfix
 from cv_monoslam_tpu_torch.ops import control, vision
 from cv_monoslam_tpu_torch.ops import linalg as tla
 from cv_monoslam_tpu_torch.ops.host_reads import HostRead, no_host_reads
+from cv_monoslam_tpu_torch.utils import profiling
 from cv_monoslam_tpu_torch.utils.watchdog import Watchdog
 
 #: config 1's settings at a smaller width, float64
@@ -277,7 +278,12 @@ def test_run_chunks_follow_jax_session(jax_run, observer):
     else:
         assert calls == ["dispatch", "dispatch", "finish", "dispatch",
                          "finish", "finish"]
-    assert ts.timer.n_frames == 12 and ts.timer.mean_time > 0
+    tot = profiling.totals()
+    assert tot["counters"]["frames"] == 12
+    assert tot["counters"]["chunks_detect"] == 3
+    assert tot["spans"]["slam.dispatch"]["count"] == 3
+    assert tot["spans"]["slam.finish"]["count"] == 3
+    assert tot["spans"]["slam.run"]["total_ns"] > 0
 
 
 def test_host_gated_chunks_follow_jax_session():

@@ -333,33 +333,6 @@ def test_session_records_every_frame(tmp_path):
 
 # -- timers and trace ------------------------------------------------------------
 
-def test_frame_timer_and_stage_timer():
-    import time
-
-    from cv_monoslam_tpu_torch.utils.profiling import FrameTimer, StageTimer
-
-    t = FrameTimer()
-    assert t.mean_time == 0.0
-    t.start()
-    time.sleep(0.01)
-    dt = t.stop()
-    assert dt >= 0.01 and t.n_frames == 1 and t.frame_time == dt
-    assert t.record(0.8, frames=8) == 0.8
-    assert t.n_frames == 9 and t.frame_time == 0.8
-    assert abs(t.total_time - (dt + 0.8)) < 1e-12
-    assert abs(t.mean_time - (dt + 0.8) / 9) < 1e-12
-
-    st = StageTimer(device="cpu")
-    for _ in range(2):
-        with st.time("predict"):
-            time.sleep(0.005)
-    with pytest.raises(ValueError):
-        with st.time("update"):
-            raise ValueError("still counted")
-    assert st.counts == {"predict": 2, "update": 1}
-    assert st.summary()["predict"] >= 0.005
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     from cv_monoslam_tpu_torch.utils.profiling import trace
 

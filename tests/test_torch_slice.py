@@ -41,6 +41,7 @@ from cv_monoslam_tpu.io import fixtures as jfix
 from cv_monoslam_tpu_torch.api import SlamSession
 from cv_monoslam_tpu_torch.config import SlamConfig
 from cv_monoslam_tpu_torch.io import fixtures as tfix
+from cv_monoslam_tpu_torch.utils import profiling
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 KW = dict(max_landmarks=32, max_new_per_frame=8, max_detections=48,
@@ -267,6 +268,8 @@ def _lap_sessions(n_frames, dtype="float64"):
     live = SlamSession(cfg, seq, track, device="cpu",
                        backend=BackendSession(cfg, device="cpu"))
     live.run(n_frames=n_frames, chunk=8)
+    # the next session zeroes the process's span totals
+    live.totals = profiling.totals()
     cap = TelemetryCapture()
     filt = SlamSession(cfg, seq, track, device="cpu", backend=cap)
     filt.run(n_frames=n_frames, chunk=8)
@@ -335,7 +338,11 @@ def test_backend_slice_follows_jax_engine_48_frames(lap48):
     assert abs(ts.ate(gt_xy, refined=True)
                - js.ate(jgt, refined=True)) <= 2e-4
     assert abs(ts.ate(gt_xy) - js.ate(jgt)) <= 2e-4
-    assert ts.timer.n_frames == 48 and ts.timer.mean_time > 0
+    tot = ts.totals
+    assert tot["counters"]["frames"] == 48
+    assert tot["spans"]["slam.refine"]["count"] >= len(ts.refinements)
+    assert tot["spans"]["slam.refine"]["under"]["slam.frames_host"] > 0
+    assert tot["spans"]["slam.run"]["total_ns"] > 0
 
 
 def test_live_backend_equals_capture_and_replay_exactly(lap48):
