@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile --config 3   # ... of config 3
     python3 chip_smoke.py --profile --config 4   # ... of config 4
     python3 chip_smoke.py --marks    # the build and the stage marks alone
+    python3 chip_smoke.py --measure  # the build and phase 3d alone
     python3 chip_smoke.py --baseline DIR   # ... the recurrence and linalg
                                            # kernels timed against DIR's,
                                            # R3 with DIR's gmw_chol
@@ -93,6 +94,21 @@ non-zero and prints no result):
    matched slots (read on the device), capture seconds and pools; the
    ``gmw`` mode also at max_landmarks=64 (D = 388: the grid route, a
    cooperative launch captured in a conditional body);
+3d. the full-sigma measurement prediction's two kernels
+   (``vision.measure_project``, ``vision.measure_merge``,
+   ``csrc/vision_kernels.cu``, around the plain version's two reductions)
+   on config 1 on the benchmark's blob lap
+   (``slambench/traffic/blob_lap.json``, rendered on the card): the kernel
+   route against its plain version ``full_rows_ref`` on the sigma sets of
+   160 tracked frames, float32 and float64: 0 sentinel flips and 0 pixels,
+   visibilities, preds and sis not the plain version's bits; each kernel's
+   time beside the launch floor (and the projection's bound), the kernel
+   route's and the plain chain's; then chunk graphs of 32 through the plain
+   chain and through the kernels: launches (each tracked frame, 0 on a
+   forced redirect frame and on the plain route), synchronizing calls of a
+   dispatch, device operations a frame, the ``measure`` stage's ms a frame
+   and frames/s in turns (plain, kernel, kernel, plain). Phases 3b, 3c, 4,
+   5 and 6 count their launches too (config 3: none);
 4. the slice: ``SlamSession`` on the frozen ``bench1_arc`` fixture at the
    config-1 settings, float32, ``run(chunk=32)`` over all 104 frames,
    timed after a warm-up chunk; checks the launch counters (the fused
@@ -256,6 +272,20 @@ FRAME_H, FRAME_W = 480, 640   # the camera's frame (every configuration)
 KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear")
 #: the two recurrences of csrc/scan_kernels.cu
 SCAN_KERNELS = ("store_slots", "gftt_greedy_nms")
+#: the full-sigma measurement prediction's two kernels
+#: (csrc/vision_kernels.cu): each once per tracked frame of a
+#: sigma_mode="full" configuration, never on config 3
+MEASURE_KERNELS = ("measure_project", "measure_merge")
+#: phase 3d: the benchmark's blob lap (``slambench/traffic/blob_lap.json``)
+#: at config 1, started at frame seed mod 105; the tracked frames whose
+#: sigma sets are kept (a lap and a half)
+MEASURE_SEED = 2147483659
+MEASURE_SETS = 160
+#: operations of one sigma point through the projection: state_to_world
+#: 11, the rotation 15, camera2image 8, distort's set-up 14 and 8 Newton
+#: steps of 20, the final scaling 11 (the six sines and cosines counted as
+#: one each)
+MEASURE_OPS_PER_POINT = 225
 
 #: config 3 of ``bench.py`` (``bench_large`` -> ``scripts/bench_large.py``)
 CONFIG3 = dict(max_landmarks=576, max_new_per_frame=64, max_detections=768,
@@ -918,15 +948,20 @@ def read_counters(dev) -> dict:
 
 def launches(counts: dict) -> dict:
     return {name: counts[name]
-            for name in KERNELS + SCAN_KERNELS + LINALG_KERNELS}
+            for name in KERNELS + SCAN_KERNELS + LINALG_KERNELS
+            + MEASURE_KERNELS}
 
 
-def launch_problems(counts: dict, expected: int, what: str) -> list:
+def launch_problems(counts: dict, expected: int, what: str,
+                    measure: int = None) -> list:
     """The fused kernel once per tracked frame, the standalone kernels, the
     linalg kernels (only the ``sequential`` update modes run them) and the
-    plain template normalization never."""
+    plain template normalization never; with ``measure``, each of the
+    measurement prediction's two kernels that many times."""
     want = dict.fromkeys(KERNELS + LINALG_KERNELS, 0)
     want["warp_ncc_score_map"] = expected
+    if measure is not None:
+        want.update(dict.fromkeys(MEASURE_KERNELS, measure))
     problems = [f"{name} launched {counts[name]} times for {expected} "
                 f"tracked frames of {what} (wanted {n})"
                 for name, n in want.items() if counts[name] != n]
@@ -1509,7 +1544,9 @@ def phase_chunk_graphs(dev, errs: dict, floor: float,
             res.setdefault("dispatch_syncs_per_frame", []).append(
                 n_syncs[0] / chunk)
             res.setdefault("finish_syncs_per_chunk", []).append(n_syncs[1])
-            problems = launch_problems(counts, chunk, f"one {name} chunk")
+            problems = launch_problems(
+                counts, chunk, f"one {name} chunk",
+                measure=0 if name == "config3" else chunk)
             log(f"[graphs] (b)+(c) {name} detect={sess.chunk_detect[-1]}: "
                 f"{n_syncs[0] / chunk:.2f} synchronizing calls/frame in the "
                 f"dispatch, {n_syncs[1]} in the finish (the telemetry "
@@ -2041,7 +2078,7 @@ def step_graph_config1(dev) -> dict:
     problems = []
     for route, r in runs.items():
         problems += launch_problems(r["counts"], 48, f"config 1 by step() "
-                                    f"({route})")
+                                    f"({route})", measure=48)
     capture = {("x".join(str(x) for x in key[:3])): v
                for key, v in sess.capture_s.items()}
     start = (c0, s0, 0)
@@ -2265,7 +2302,8 @@ def phase_slice(dev, errs: dict) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counters(dev)
-    timed_launches = {k: counts[k] - warm[k] for k in KERNELS}
+    timed_launches = {k: counts[k] - warm[k]
+                      for k in KERNELS + MEASURE_KERNELS}
 
     recs = sess.records
     n_timed = len(recs) - n0
@@ -2287,13 +2325,15 @@ def phase_slice(dev, errs: dict) -> dict:
 
     check_captured(captured, errs, "on a fixture frame", cfg.max_landmarks)
 
-    problems = launch_problems(counts, len(recs), "config 1")
+    problems = launch_problems(counts, len(recs), "config 1",
+                               measure=len(recs))
     if not counts["gftt_greedy_nms"]:
         problems.append("the greedy separation kernel never launched")
     if not np.all(np.isfinite(traj)):
         problems.append("non-finite poses")
     for name, n in timed_launches.items():
-        if n != (n_timed if name == "warp_ncc_score_map" else 0):
+        if n != (n_timed if name in ("warp_ncc_score_map",)
+                 + MEASURE_KERNELS else 0):
             problems.append(f"{name} launched {n} times in the {n_timed} "
                             f"timed frames")
     if res["escalations"] or res["skipped"]:
@@ -2387,7 +2427,7 @@ def phase_config3(dev, errs: dict, tag: str = "config3",
     check_captured(captured, errs, "on a config-3 frame",
                    sess.cfg.max_landmarks)
 
-    problems = launch_problems(counts, len(recs), "config 3")
+    problems = launch_problems(counts, len(recs), "config 3", measure=0)
     problems += [f"{name} never launched" for name in SCAN_KERNELS
                  if not counts[name]]
     if done != n_timed:
@@ -2461,7 +2501,8 @@ def phase_redirect(dev) -> dict:
                launches=launches(counts))
     log("[redirect] " + json.dumps(res))
     # the redirect frame itself tracks nothing: no kernel runs on it
-    problems = launch_problems(counts, n_frames - 1, "the redirect run")
+    problems = launch_problems(counts, n_frames - 1, "the redirect run",
+                               measure=n_frames - 1)
     if len(recs) != n_frames or res["redirected"] != [at]:
         problems.append(f"redirected frames {res['redirected']} of "
                         f"{len(recs)}, wanted [{at}] of {n_frames}")
@@ -4688,6 +4729,287 @@ def phase_marks(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the full-sigma measurement prediction (csrc/vision_kernels.cu)
+# ---------------------------------------------------------------------------
+
+
+def blob_lap_session(dev, rows: int, redirect_at: int = None):
+    """Config 1 (``slambench/configs/turtlebot_m32.json``) on the
+    benchmark's blob lap, rendered on the card from ``MEASURE_SEED`` as a
+    benchmark run renders it, ``rows`` rows of odometry (a redirection
+    forced at row ``redirect_at``). Returns (cfg, session)."""
+    from cv_monoslam_tpu_torch import SlamConfig
+    from cv_monoslam_tpu_torch.api import SlamSession
+    from cv_monoslam_tpu_torch.io.dataset import (ImageSequence,
+                                                  preprocess_odometry)
+    from slambench import harness
+    from slambench import lap as lapmod
+
+    cfg = SlamConfig(**harness.config("turtlebot_m32")["slam"])
+    c = cfg.camera
+    cam = lapmod.Camera(c.width, c.height, c.dx, c.dy, c.cx, c.cy, c.k1,
+                        c.k2, c.f)
+    lap = lapmod.make_lap(harness.traffic("blob_lap"), MEASURE_SEED, cam,
+                          cfg.deep, rows, dev)
+    track = preprocess_odometry(lap.raw, min_step_xy=cfg.min_step_xy,
+                                min_step_theta=cfg.min_step_theta,
+                                capacity=rows)
+    if redirect_at is not None:
+        track.redirect[redirect_at] = True
+    return cfg, SlamSession(cfg, ImageSequence(frames=lap.frames), track,
+                            device=dev)
+
+
+def kept_measure_sets(sess, frames: int) -> list:
+    """(state, cache, lo, hi) of every full-sigma measurement prediction in
+    ``frames`` eager steps of ``sess``, cloned."""
+    from cv_monoslam_tpu_torch.filter import measurement
+    from cv_monoslam_tpu_torch.ops import control
+
+    kept, real = [], measurement._full_rows
+
+    def keep(state, cache, cfg, lo, hi):
+        kept.append((control.tree_map(torch.clone, state),
+                     control.tree_map(torch.clone, cache), lo, hi))
+        return real(state, cache, cfg, lo, hi)
+
+    sess._graphs = False
+    with patched(measurement, "_full_rows", keep):
+        for _ in range(frames):
+            sess.step()
+    sess._graphs = True
+    torch.cuda.synchronize()
+    return kept
+
+
+def measure_gaps(sets: list, cfg, dtype) -> dict:
+    """The kernel route (``filter/measurement._full_rows`` on the card)
+    against ``full_rows_ref`` on each kept set (cast to ``dtype``): sentinel
+    flips (a point (0, 0) in one and not in the other), points, visibility
+    and slots' pred and si not the plain version's bits, the largest |dpix|
+    of a point both see, and the relative gaps of pred and si over the slots
+    both see (largest |diff| over the plain version's largest |value|)."""
+    from cv_monoslam_tpu_torch.filter import measurement
+    from cv_monoslam_tpu_torch.ops import control
+
+    def cast(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    r = dict(sets=len(sets), points=0, flips=0, pix_differ=0,
+             max_dpix=0.0, visible_differ=0, pred_differ=0, si_differ=0,
+             pred_rel_gap=0.0, si_rel_gap=0.0, visible_slots=0)
+    for state, cache, lo, hi in sets:
+        state = control.tree_map(cast, state)
+        cache = control.tree_map(cast, cache)
+        got = measurement._full_rows(state, cache, cfg, lo, hi)
+        ref = measurement.full_rows_ref(state, cache, cfg, lo, hi)
+        pix, rpix = got["sigma_pix"], ref["sigma_pix"]
+        k0 = (pix == 0).all(dim=1)
+        r0 = (rpix == 0).all(dim=1)
+        both = ~k0 & ~r0
+        r["points"] += k0.numel()
+        r["flips"] += int((k0 ^ r0).sum())
+        r["pix_differ"] += int((pix != rpix).any(dim=1).sum())
+        if both.any():
+            d = (pix - rpix).abs().amax(dim=1)[both].max()
+            r["max_dpix"] = max(r["max_dpix"], float(d))
+        r["visible_differ"] += int((got["visible"] != ref["visible"]).sum())
+        r["pred_differ"] += int((got["pred"] != ref["pred"]).any(-1).sum())
+        r["si_differ"] += int((got["si"] != ref["si"]).flatten(1).any(-1)
+                              .sum())
+        v = got["visible"] & ref["visible"]
+        r["visible_slots"] += int(v.sum())
+        for key in ("pred", "si"):
+            if v.any():
+                gap = ((got[key] - ref[key])[v].abs().max()
+                       / ref[key][v].abs().max())
+                r[f"{key}_rel_gap"] = max(r[f"{key}_rel_gap"], float(gap))
+    return r
+
+
+def measure_bound(m: int, ns: int, itemsize: int) -> dict:
+    """The projection: bytes of the 6 m + 6 sigma rows it reads (its
+    slots', the robot's four, err's two) and of the pixels it writes;
+    operations ``MEASURE_OPS_PER_POINT`` a point."""
+    nbytes = itemsize * ((6 * m + 6) * ns + 2 * m * ns)
+    return _bound(nbytes, m * ns * MEASURE_OPS_PER_POINT)
+
+
+def phase_measure(dev, smi: str) -> dict:
+    """3d. The full-sigma measurement prediction's kernels
+    (``vision.measure_project``, ``vision.measure_merge``, around the plain
+    version's two reductions) on config 1 on the benchmark's blob lap: (a)
+    the kernel route (``filter/measurement._full_rows``) against
+    ``full_rows_ref`` on the sigma sets of ``MEASURE_SETS`` tracked frames
+    kept from eager steps, float32 and (b) the same sets in float64:
+    sentinel flips, points, visibility, pred and si not the plain version's
+    bits (all must be 0), the largest |dpix|; (c) each kernel's time (CUDA
+    events, kept sets in turn) beside the launch floor and the projection's
+    bound, and the device and host time of the kernel route and of the
+    plain chain; (d) two sessions by chunk graphs of 32, one through the
+    plain chain (``_full_rows`` replaced by ``full_rows_ref`` while it
+    captures) and one through the kernels: their launches (each tracked
+    frame, 0 on the plain session and on a forced redirect frame),
+    synchronizing calls of a dispatch (``dispatch_census``), device
+    operations a frame (a profiled chunk of each), the ``measure`` stage's
+    ms a frame (stage marks) and frames/s in turns (plain, kernel, kernel,
+    plain)."""
+    from cv_monoslam_tpu_torch.filter import measurement
+    from cv_monoslam_tpu_torch.ops import vision
+
+    out, problems = {}, []
+    chunk, warm, turn = 32, 4, 8
+    # warm-up, two turns, the census and the profiled chunk, then a stretch
+    # of two chunks with a redirection forced on its 17th frame
+    stretch = chunk * (warm + 2 * turn + 2)
+    rows = stretch + 2 * chunk + 2
+    cfg, sess = blob_lap_session(dev, MEASURE_SETS + 2)
+    sets = kept_measure_sets(sess, MEASURE_SETS)
+    del sess
+    for dt, tag in ((torch.float32, "(a) float32"),
+                    (torch.float64, "(b) float64")):
+        g = measure_gaps(sets, cfg, dt)
+        out[str(dt).split(".")[-1]] = g
+        log(f"[measure] {tag}, {g['sets']} sigma sets of the blob lap "
+            f"({g['points']} points, {g['visible_slots']} visible slots), "
+            f"kernel route against the plain version: {g['flips']} sentinel "
+            f"flips, {g['pix_differ']} pixels not its bits (max |dpix| "
+            f"{g['max_dpix']:.3g}), slots differing in visible "
+            f"{g['visible_differ']}, pred {g['pred_differ']} (rel gap "
+            f"{g['pred_rel_gap']:.3g}), si {g['si_differ']} (rel gap "
+            f"{g['si_rel_gap']:.3g})")
+        if any(g[k] for k in ("flips", "pix_differ", "visible_differ",
+                              "pred_differ", "si_differ")):
+            problems.append(f"{tag}: {g}")
+
+    # (c) time
+    m = cfg.max_landmarks
+    floor, _ = time_ms(lambda: vision.empty_launch(dev), [()])
+    sets = sets[:N_TIMED]
+    tails = []
+    for st, ca, lo, hi in sets:
+        pix = measurement.project_all(ca.sigma, cfg, lo, hi)
+        mean, gram = measurement._pixel_moments(pix, cfg)
+        lm = st.lm
+        tails.append((mean, gram, lm.active[lo:hi], lm.pred[lo:hi],
+                      lm.si[lo:hi]))
+    p_ms, p_host = time_ms(lambda st, ca, lo, hi: vision.measure_project(
+        ca.sigma, lo=lo, m=hi - lo, state_dim=cfg.state_dim, cam=cfg.camera),
+        sets)
+    g_ms, g_host = time_ms(lambda *a: vision.measure_merge(
+        *a, sigma_measure=cfg.sigma_measure), tails)
+    r_ms, r_host = time_ms(lambda st, ca, lo, hi: measurement._full_rows(
+        st, ca, cfg, lo, hi), sets)
+    c_ms, c_host = time_ms(lambda st, ca, lo, hi: measurement.full_rows_ref(
+        st, ca, cfg, lo, hi), sets)
+    ns = sets[0][1].sigma.shape[1]
+    bound = measure_bound(m, ns, 4)
+    out["time"] = dict(project_ms=p_ms, project_host_ms=p_host,
+                       merge_ms=g_ms, merge_host_ms=g_host, route_ms=r_ms,
+                       route_host_ms=r_host, plain_ms=c_ms,
+                       plain_host_ms=c_host, launch_floor_ms=floor, m=m,
+                       ns=ns, **bound)
+    log(f"[measure] (c) [{smi}] M={m} ns={ns}: measure_project {p_ms:.4f} ms "
+        f"({p_ms / floor:.2f} x the launch floor {floor:.4f} ms; bound "
+        f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']}: "
+        f"{bound['bytes']} B, {bound['flops']} operations), host "
+        f"{p_host:.4f} ms; measure_merge {g_ms:.4f} ms, host {g_host:.4f} "
+        f"ms; the kernel route (both and the two reductions) {r_ms:.4f} ms "
+        f"device, {r_host:.4f} ms host; the plain chain {c_ms:.4f} ms "
+        f"device, {c_host:.4f} ms host")
+    del sets, tails
+
+    # (d) the two routes by chunk graphs
+    sessions = {}
+    for kind in ("plain", "kernel"):
+        ctx = (patched(measurement, "_full_rows", measurement.full_rows_ref)
+               if kind == "plain" else contextlib.nullcontext())
+        with ctx:
+            _, s = blob_lap_session(dev, rows, redirect_at=(
+                stretch + 17 if kind == "kernel" else None))
+            s.run(n_frames=warm * chunk, chunk=chunk)
+        sessions[kind] = s
+    torch.cuda.synchronize()
+    fps = {"plain": [], "kernel": []}
+    stage = {"plain": [], "kernel": []}
+    launched = {"plain": [], "kernel": []}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        s = sessions[kind]
+        keys = len(s.capture_s)
+        reset_counters(dev)
+        before = vision.stage_times(dev)
+        n0 = len(s.records)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.run(n_frames=turn * chunk, chunk=chunk)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = vision.stage_times(dev)
+        n = len(s.records) - n0
+        fps[kind].append(n / dt)
+        frames = max(after["frames"] - before["frames"], 1)
+        stage[kind].append({k: (after[k] - before[k]) / frames / 1e6
+                            for k in ("motion", "measure")})
+        counts = read_counters(dev)
+        launched[kind].append(([counts[k] for k in MEASURE_KERNELS], n))
+        if len(s.capture_s) != keys:
+            problems.append(f"{kind}: a capture inside a timed turn")
+    census = {}
+    for kind, s in sessions.items():
+        census[kind] = dict(
+            syncs=dispatch_census(s, chunk),
+            profile=profile_chunk(s, chunk, f"measure {kind}"))
+    # a stretch over the kernel session's forced redirect frame
+    s = sessions["kernel"]
+    reset_counters(dev)
+    n0 = len(s.records)
+    s.run(n_frames=2 * chunk, chunk=chunk)
+    torch.cuda.synchronize()
+    recs = s.records[n0:]
+    tracked = sum(not r.redirected for r in recs)
+    counts = read_counters(dev)
+    redirect = dict(frames=len(recs),
+                    redirected=sum(r.redirected for r in recs),
+                    tracked=tracked,
+                    launches=[counts[k] for k in MEASURE_KERNELS])
+    problems += launch_problems(counts, tracked, "the redirect stretch",
+                                measure=tracked)
+    if not redirect["redirected"]:
+        problems.append("no redirect frame in the redirect stretch")
+    for kind, runs in launched.items():
+        for got, n in runs:
+            if got != [n if kind == "kernel" else 0] * 2:
+                problems.append(f"{kind} route: {got} launches of "
+                                f"{MEASURE_KERNELS} in {n} frames")
+    out["routes"] = dict(fps=fps, stage_ms=stage, launches=launched,
+                         redirect=redirect, census={
+                             k: dict(syncs=c["syncs"],
+                                     device_ops_per_frame=c["profile"][
+                                         "device_ops_per_frame"],
+                                     busy_ms_per_frame=c["profile"][
+                                         "busy_ms_per_frame"])
+                             for k, c in census.items()})
+    for kind in ("plain", "kernel"):
+        c = census[kind]
+        stages = [{k: round(v, 4) for k, v in st.items()}
+                  for st in stage[kind]]
+        log(f"[measure] (d) [{smi}] {kind} route, chunk graphs of {chunk}: "
+            f"frames/s {[round(f, 2) for f in fps[kind]]}; stage ms a frame "
+            f"{stages}; {MEASURE_KERNELS} launches / frames {launched[kind]}; "
+            f"synchronizing "
+            f"calls dispatch / finish {c['syncs']}; profiled: "
+            f"{c['profile']['device_ops_per_frame']:.1f} device ops a frame")
+    log(f"[measure] (d) redirect stretch: {redirect}")
+    for c in census.values():
+        if c["syncs"][0]:
+            problems.append(f"{c['syncs'][0]} synchronizing calls in a "
+                            f"dispatch")
+    if problems:
+        raise AssertionError("measure checks failed: " + "; ".join(problems))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4702,6 +5024,9 @@ def main() -> int:
     ap.add_argument("--marks", action="store_true",
                     help="instead of the smoke, the build and the stage "
                          "marks' phase alone")
+    ap.add_argument("--measure", action="store_true",
+                    help="instead of the smoke, the build and the "
+                         "measurement prediction's phase (3d) alone")
     ap.add_argument("--ranks", type=int, choices=(1, 4),
                     help="instead of the smoke, the multi-device paths on "
                          "this many NCCL ranks, a card each (fails on a "
@@ -4730,12 +5055,16 @@ def main() -> int:
         return out
 
     run(phase_build)
+    if args.measure:
+        log(json.dumps({"measure": run(phase_measure, dev, info["smi"])}))
+        return 0
     marks = run(phase_marks, dev)
     if args.marks:
         log(json.dumps({"marks": marks}))
         return 0
     errs = run(phase_kernel_checks, dev)
     times = run(phase_kernel_times, dev)
+    meas = run(phase_measure, dev, info["smi"])
     baseline = load_baseline(args.baseline) if args.baseline else None
     gr = run(phase_chunk_graphs, dev, errs, times["launch_floor_ms"],
              baseline)
@@ -4889,6 +5218,30 @@ def main() -> int:
                     "us_per_step", "library_ms", "latency_ms", "ms_runs",
                     "baseline_ms") + extra})
         kernels.append(k)
+    t = meas["time"]
+    for name in MEASURE_KERNELS:
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="cv_monoslam_tpu_torch/ops/csrc/vision_kernels.cu",
+            replaces="cv_monoslam_tpu_torch/filter/measurement.py::"
+                     "full_rows_ref but its two reductions "
+                     "(cv_monoslam_tpu/filter/measurement.py:41-62 + "
+                     "178-198, sigma_mode='full'; no Pallas kernel)",
+            launches=sl["launches"][name],
+            launches_config3=c3["launches"][name],
+            launches_redirect=rd["launches"][name],
+            launches_config4=c4["launches"][name],
+            **{f"{k}_{dt}": meas[dt][k] for dt in ("float32", "float64")
+               for k in ("flips", "pix_differ", "pred_differ",
+                         "si_differ")},
+            ms=t[f"{name[8:]}_ms"], host_ms=t[f"{name[8:]}_host_ms"],
+            route_ms=t["route_ms"], plain_ms=t["plain_ms"],
+            plain_host_ms=t["plain_host_ms"],
+            bound_ms=t["bound_ms"] if name == "measure_project" else None,
+            bound_by=t["bound_by"] if name == "measure_project" else None,
+            library_ms=None, launch_floor_ms=t["launch_floor_ms"],
+            device_ops_per_frame={k: c["device_ops_per_frame"] for k, c in
+                                  meas["routes"]["census"].items()}))
     for name in ("config1", "config3", "config4"):
         g = gr[name]
         log(f"[graphs] {name} [{info['smi']}]: frames/s graph "

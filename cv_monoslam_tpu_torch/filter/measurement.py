@@ -15,8 +15,10 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig
+from ..frontend.matching import _use_kernel
 from ..geometry import camera as cam_mod
 from ..geometry import transforms as tf
+from ..ops import vision
 from .sigma import ut_weights
 from .state import FilterState, PredictCache, replace
 
@@ -219,19 +221,48 @@ def measurement_predict(state: FilterState, cache: PredictCache,
 
 def _full_rows(state: FilterState, cache: PredictCache, cfg: SlamConfig,
                lo: int, hi: int) -> dict:
+    """:func:`full_rows_ref`'s rows of the slots ``[lo, hi)``: on CUDA
+    tensors the projection and the tail are one kernel launch each
+    (``ops.vision.measure_project``, ``ops.vision.measure_merge``) around
+    the plain version's own two reductions (:func:`_pixel_moments`), which
+    the benchmark's reference shares; on CPU tensors, and with
+    ``vision_backend="xla"``, the plain version itself."""
+    if not _use_kernel(cfg) or cache.sigma.device.type == "cpu":
+        return full_rows_ref(state, cache, cfg, lo, hi)
+    lm = state.lm
+    pix = vision.measure_project(cache.sigma, lo=lo, m=hi - lo,
+                                 state_dim=cfg.state_dim, cam=cfg.camera)
+    mean, gram = _pixel_moments(pix, cfg)
+    visible, pred, si = vision.measure_merge(
+        mean, gram, lm.active[lo:hi], lm.pred[lo:hi], lm.si[lo:hi],
+        sigma_measure=cfg.sigma_measure)
+    return dict(visible=visible, pred=pred, si=si, sigma_pix=pix)
+
+
+def _pixel_moments(pix: torch.Tensor, cfg: SlamConfig):
+    """The weighted mean (M, 2) of the (M, 2, ns) pixels and the Gram
+    (M, 2, 2) of their sqrt(wi)-scaled deviations from the centre point."""
+    w = ut_weights(cfg.state_dim + 5, cfg)
+    mean = pix @ w.mean_weights(pix.dtype, pix.device)  # (M, 2)
+    dev_pix = w.wi_sr * (pix[:, :, 1:] - pix[:, :, :1])  # (M, 2, 2Na)
+    return mean, torch.einsum("mis,mjs->mij", dev_pix, dev_pix)
+
+
+def full_rows_ref(state: FilterState, cache: PredictCache, cfg: SlamConfig,
+                  lo: int, hi: int) -> dict:
+    """Plain version of the full-sigma rows of the slots ``[lo, hi)``: every
+    slot projected through every sigma point (:func:`project_all`), the
+    weighted mean and the deviations' Gram, visibility, the 2x2 sqrt
+    innovation and the merges with the old rows, one torch operation at a
+    time."""
     dtype = state.x.dtype
     dev = state.x.device
-    D = cfg.state_dim
-    w = ut_weights(D + 5, cfg)
-
     pix = project_all(cache.sigma, cfg, lo, hi)         # (M, 2, ns)
-    mean = pix @ w.mean_weights(dtype, dev)             # (M, 2)
+    mean, gram = _pixel_moments(pix, cfg)
 
     lm = state.lm
     visible = lm.active[lo:hi] & (mean[:, 0] != 0) & (mean[:, 1] != 0)
 
-    dev_pix = w.wi_sr * (pix[:, :, 1:] - pix[:, :, :1])  # (M, 2, 2Na)
-    gram = torch.einsum("mis,mjs->mij", dev_pix, dev_pix)
     # independent per-landmark measurement noise: Pyy = geo + sigma^2 I
     gram = gram + (cfg.sigma_measure ** 2) * torch.eye(
         2, dtype=dtype, device=dev)

@@ -1,12 +1,15 @@
 // Vision hot-loop kernels for Hopper (sm_90a): zero-mean NCC active search,
-// bilinear patch warp, and the two fused with the region gather into one
-// launch (the one the matcher runs). Plain C interface, loaded with ctypes
-// by cv_monoslam_tpu_torch/ops/_build.py; each entry point launches on the
+// bilinear patch warp, the two fused with the region gather into one
+// launch (the one the matcher runs), and the full-sigma measurement
+// prediction (every slot through every sigma point, one launch a frame).
+// Plain C interface, loaded with ctypes by
+// cv_monoslam_tpu_torch/ops/_build.py; each entry point launches on the
 // stream it is given and returns cudaGetLastError() of its launch.
 //
-// Every kernel computes the same function as its plain PyTorch version in
-// cv_monoslam_tpu_torch/ops/vision.py (ncc_score_map_ref, warp_bilinear_ref,
-// warp_ncc_score_map_ref), which chip_smoke.py holds it against on the card.
+// Every kernel computes the same function as its plain PyTorch version
+// (cv_monoslam_tpu_torch/ops/vision.py: ncc_score_map_ref, warp_bilinear_ref,
+// warp_ncc_score_map_ref; filter/measurement.py: full_rows_ref), which
+// chip_smoke.py holds it against on the card.
 //
 // Launch counts: a launch captured in a CUDA graph runs on every replay
 // without a call of its wrapper, so thread 0 of block 0 of every launch adds
@@ -119,6 +122,46 @@ namespace {
 // ncc_score_map_kernel stays as the counterpart of pallas_vision.
 // ncc_score_map and of the port's public vision.ncc_score_map.
 // ---------------------------------------------------------------------------
+
+// one rounding per operation, as one torch elementwise op rounds (the
+// measurement prediction's chain; the NCC taps use __fmul_rn / __fadd_rn)
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+// what torch's sin / cos kernels call (::sin, ::cos: sinf / cosf for float)
+__device__ __forceinline__ float sin_of(float a) { return sinf(a); }
+__device__ __forceinline__ double sin_of(double a) { return sin(a); }
+__device__ __forceinline__ float cos_of(float a) { return cosf(a); }
+__device__ __forceinline__ double cos_of(double a) { return cos(a); }
 
 constexpr int TW = 7;   // offsets per thread: a 1 x TW strip of an output row
 constexpr int WG = 4;   // output rows per window-sum task (one column each)
@@ -625,6 +668,260 @@ __global__ void warp_ncc_score_map_kernel(const float* __restrict__ image,
 }
 
 // ---------------------------------------------------------------------------
+// Full-sigma measurement prediction
+//
+// Replaces the plain chain of filter/measurement.py::full_rows_ref (the JAX
+// package's cv_monoslam_tpu/filter/measurement.py:41-62 project_all and
+// :178-198 measurement_predict with sigma_mode="full", which XLA fuses; no
+// Pallas kernel), some 250 torch operations, each a node of the frame's
+// graph, by two launches around the plain version's own two reductions:
+//
+//   measure_project_kernel   every slot m of [lo, lo + M) through every
+//                            point s of the (Na, ns) augmented sigma set
+//                            (Na = D + 5; err in its last two rows):
+//       hlw   = anchor + ray(theta, phi) / rho - pos        state_to_world
+//       hlr   = yaw_matrix(theta_r)^T hlw                   the 3x3 einsum
+//       pix_s = distort(camera2image(hlr, err))             (0, 0) sentinel
+//   then torch, as the plain version: mean = pix @ w (cuBLAS GEMV) and
+//       gram = einsum(d, d), d_s = wi_sr (pix_s - pix_0)     (batched GEMM)
+//   measure_merge_kernel     one thread a slot: visible = active & mean !=
+//                            (0, 0); si = chol2x2_upper(gram + sigma^2 I);
+//                            pred and si keep their old rows where a slot
+//                            is not visible.
+//
+// Why not one launch. The mean weighs ~400 pixels by w_0 = -66 and w_i =
+// 1/6, so its terms reach ~2e4 px, and its float32 roundoff depends on the
+// order of the sum: a block reduction of the kernel's parted from cuBLAS's
+// GEMV by 5.3e-5 of the mean (0.02-0.03 px; H100, 160 frames of the blob
+// lap, a fifth of the pixels then also an ulp off). The benchmark's
+// plain reference sums it as the plain version does, and at M = 32 a mean
+// that parted from it by 3e-5 moved the update's innovation enough to fail
+// its `correct` (map gap 2.3e-3 against a limit of 5e-4). So the two
+// reductions stay the plain version's, and everything around them rounds
+// as the plain version rounds: the frame's measurement prediction is the
+// plain version's to the bit.
+//
+// What bounds it on an H100. Config 1 (M = 32, D = 196, ns = 403): the
+// projection reads the 198 sigma rows it uses (0.32 MB) and writes sigma_pix
+// (0.10 MB): 0.13 us at 3.35 TB/s; some 225 operations a point, 2.9 MFLOP,
+// 0.04 us at 67 TFLOP/s. Both lie far below the card's launch floor (~5 us,
+// empty_kernel below), so what is left is latency: one point's chain of
+// dependent operations (six sines and cosines, eight Newton steps of two
+// divisions each). The merge is 32 threads of ~15 operations. The chain it
+// replaces waits a graph node's latency (~1.5 us) per operation.
+//
+// Design.
+// * One thread a (slot, point), a flat grid: the longest chain is one
+//   point's. Neighbouring threads take neighbouring points, so sigma's rows
+//   are read coalesced; the robot's and err's six rows are read by every
+//   slot (from L2). sigma_pix is written as (M, ns, 2), the memory order of
+//   the plain version's project_all, whose (M, 2, ns) result is a permuted
+//   view: the reductions after it then see the same strides as in the
+//   plain version and take the same cuBLAS calls.
+// * Rounded as the plain chain rounds. Every operation rounds on its own
+//   (mul_rn ..., no FMA contraction), divisions and square roots correctly
+//   rounded, sin / cos the libdevice functions torch's kernels call
+//   (sinf / cosf; none of 261,950 sigma angles differs, H100), a Python
+//   scalar cast to T first, and a division by a Python scalar as the
+//   product with its reciprocal computed in double and cast to T (torch
+//   divides a CUDA tensor by a scalar so; the reciprocal taken in float
+//   left 22 % of the float32 pixels an ulp off); the rotation as the card's
+//   batched GEMM forms it (rot_row, a chain of FMAs in index order: none of
+//   224,336 rotated coordinates differs). So a point on the image margin or
+//   the frame's edge falls on the same side as in the plain version: a
+//   flipped sentinel moves the mean by w_i * ~300 px.
+// * M and ns come from the shapes: any M, any ns; float and double.
+// ---------------------------------------------------------------------------
+
+constexpr int kMeasureThreads = 128;
+
+// the camera's scalars of the plain chain, as the Python floats it uses (in
+// this order in the entry point's `consts`), cast to T in the kernel as
+// torch casts them
+enum MeasureConst {
+  kCx, kCy, kF1, kF2, kDx, kDy, kK1, kK2, kK1x3, kK2x5, kMargin, kUHi, kVHi,
+  kWidth, kHeight, kMeasureConsts
+};
+struct MeasureArgs {
+  double c[kMeasureConsts];
+};
+
+template <typename T>
+struct MeasureCam {
+  T cx, cy, f1, f2, dx, dy, inv_dx, inv_dy, k1, k2, k1x3, k2x5, margin, u_hi,
+      v_hi, width, height;
+  __device__ __forceinline__ explicit MeasureCam(const MeasureArgs& a)
+      : cx((T)a.c[kCx]), cy((T)a.c[kCy]), f1((T)a.c[kF1]), f2((T)a.c[kF2]),
+        dx((T)a.c[kDx]), dy((T)a.c[kDy]),
+        inv_dx((T)(1.0 / a.c[kDx])), inv_dy((T)(1.0 / a.c[kDy])),
+        k1((T)a.c[kK1]), k2((T)a.c[kK2]), k1x3((T)a.c[kK1x3]),
+        k2x5((T)a.c[kK2x5]), margin((T)a.c[kMargin]), u_hi((T)a.c[kUHi]),
+        v_hi((T)a.c[kVHi]), width((T)a.c[kWidth]), height((T)a.c[kHeight]) {}
+};
+
+// one row of hlr = R_cw hlw as the card's einsum forms it: a batched GEMM
+// over the sigma points whose depth-3 sums are a chain of fused
+// multiply-adds in index order
+template <typename T>
+__device__ __forceinline__ T rot_row(T a0, T a1, T a2, T h0, T h1, T h2) {
+  return fma_rn(a2, h2, fma_rn(a1, h1, mul_rn(a0, h0)));
+}
+
+// pix of sigma point s for the landmark whose six rows start at row f0:
+// geometry/transforms.py and geometry/camera.py::project in their order
+template <typename T>
+__device__ __forceinline__ void measure_point(const T* __restrict__ sigma,
+                                              int ns, int s, int f0, int d,
+                                              const MeasureCam<T>& k,
+                                              int iters, T& pu, T& pv) {
+  const size_t at = (size_t)f0 * ns + s;   // the landmark's first row
+  const size_t rob = (size_t)(d - 4) * ns + s;   // the robot's first row
+  const size_t n = (size_t)ns;
+  const T ax = sigma[at], ay = sigma[at + n], az = sigma[at + 2 * n];
+  const T th = sigma[at + 3 * n], ph = sigma[at + 4 * n];
+  const T rho = sigma[at + 5 * n];
+  const T px = sigma[rob], py = sigma[rob + n], pz = sigma[rob + 2 * n];
+  const T tr = sigma[rob + 3 * n];
+  const T e0 = sigma[rob + 7 * n], e1 = sigma[rob + 8 * n];
+  // state_to_world: anchor + ray / rho - pos
+  const T cp = cos_of(ph);
+  const T r = rho == T(0) ? T(1e-13) : rho;
+  const T h0 = sub_rn(add_rn(ax, div_rn(mul_rn(cp, sin_of(th)), r)), px);
+  const T h1 = sub_rn(add_rn(ay, div_rn(-sin_of(ph), r)), py);
+  const T h2 = sub_rn(add_rn(az, div_rn(mul_rn(cp, cos_of(th)), r)), pz);
+  // yaw_matrix(theta_r)^T = [[c, s, 0], [-s, c, 0], [0, 0, 1]]
+  const T c = cos_of(tr), sn = sin_of(tr);
+  const T X = rot_row(c, sn, T(0), h0, h1, h2);
+  const T Y = rot_row(-sn, c, T(0), h0, h1, h2);
+  const T Z = rot_row(T(0), T(0), T(1), h0, h1, h2);
+  // camera2image: u from Y through (cy, f2), v from X through (cx, f1)
+  const T sz = Z == T(0) ? T(1) : Z;
+  const T u = add_rn(add_rn(div_rn(mul_rn(k.f2, Y), sz), k.cy), e0);
+  const T v = add_rn(add_rn(div_rn(mul_rn(k.f1, X), sz), k.cx), e1);
+  pu = T(0);
+  pv = T(0);
+  if (!(Z != T(0) && u >= k.margin && u <= k.u_hi && v >= k.margin &&
+        v <= k.v_hi))
+    return;
+  // distort: Newton on rd + k1 rd^3 + k2 rd^5 = ru
+  const T xu = mul_rn(sub_rn(u, k.cx), k.dx);
+  const T yu = mul_rn(sub_rn(v, k.cy), k.dy);
+  const T ru = sqrt_rn(add_rn(mul_rn(xu, xu), mul_rn(yu, yu)));
+  const T ru2 = mul_rn(ru, ru);
+  T rd = div_rn(ru, add_rn(add_rn(T(1), mul_rn(k.k1, ru2)),
+                           mul_rn(mul_rn(k.k2, ru2), ru2)));
+  for (int i = 0; i < iters; ++i) {
+    const T rd2 = mul_rn(rd, rd);
+    const T f = sub_rn(add_rn(add_rn(rd, mul_rn(k.k1, mul_rn(rd2, rd))),
+                              mul_rn(k.k2, mul_rn(mul_rn(rd2, rd2), rd))),
+                       ru);
+    const T fp = add_rn(add_rn(T(1), mul_rn(mul_rn(k.k1x3, rd), rd)),
+                        mul_rn(k.k2x5, mul_rn(rd2, rd2)));
+    rd = sub_rn(rd, div_rn(f, fp));
+  }
+  const T rd2 = mul_rn(rd, rd);
+  T dd = add_rn(add_rn(T(1), mul_rn(k.k1, rd2)),
+                mul_rn(mul_rn(k.k2, rd2), rd2));
+  if (dd == T(0)) dd = T(1e-13);
+  const T ud = add_rn(mul_rn(div_rn(xu, dd), k.inv_dx), k.cx);
+  const T vd = add_rn(mul_rn(div_rn(yu, dd), k.inv_dy), k.cy);
+  if (ud >= T(0) && ud <= k.width && vd >= T(0) && vd <= k.height) {
+    pu = ud;
+    pv = vd;
+  }
+}
+
+// One thread a (slot, point), m * ns of them. sigma (d + 5, ns) -> pix
+// (m, ns, 2).
+template <typename T>
+__global__ void __launch_bounds__(kMeasureThreads)
+    measure_project_kernel(const T* __restrict__ sigma, T* __restrict__ pix,
+                           int m, int lo, int d, int ns, MeasureArgs args,
+                           int iters, int* __restrict__ launches) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) atomicAdd(launches, 1);
+  if (i >= m * ns) return;
+  const int slot = i / ns;
+  const MeasureCam<T> k(args);
+  T u, v;
+  measure_point(sigma, ns, i - slot * ns, 6 * (lo + slot), d, k, iters, u,
+                v);
+  pix[2 * (size_t)i] = u;
+  pix[2 * (size_t)i + 1] = v;
+}
+
+// One thread a slot. mean (m, 2), gram (m, 2, 2) from the plain version's
+// reductions; active, visible (m,); pred_old, pred (m, 2); si_old, si
+// (m, 2, 2). filter/measurement.py::full_rows_ref's tail in its order:
+// gram + sigma^2 I, chol2x2_upper (clamps keep a NaN a NaN, as torch's do),
+// the merges.
+template <typename T>
+__global__ void measure_merge_kernel(const T* __restrict__ mean,
+                                     const T* __restrict__ gram,
+                                     const bool* __restrict__ active,
+                                     const T* __restrict__ pred_old,
+                                     const T* __restrict__ si_old,
+                                     bool* __restrict__ visible,
+                                     T* __restrict__ pred,
+                                     T* __restrict__ si, int m,
+                                     double sigma2,
+                                     int* __restrict__ launches) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) atomicAdd(launches, 1);
+  if (i >= m) return;
+  const T mu = mean[2 * i], mv = mean[2 * i + 1];
+  const bool vis = active[i] && mu != T(0) && mv != T(0);
+  const T s2 = (T)sigma2;
+  const T g00 = add_rn(gram[4 * i], s2);
+  const T g01 = add_rn(gram[4 * i + 1], T(0));
+  const T g11 = add_rn(gram[4 * i + 3], s2);
+  const T a = sqrt_rn(g00 < T(0) ? T(0) : g00);
+  const T b = div_rn(g01, a == T(0) ? T(1) : a);
+  const T t = sub_rn(g11, mul_rn(b, b));
+  const T c = sqrt_rn(t < T(0) ? T(0) : t);
+  visible[i] = vis;
+  pred[2 * i] = vis ? mu : pred_old[2 * i];
+  pred[2 * i + 1] = vis ? mv : pred_old[2 * i + 1];
+  si[4 * i] = vis ? a : si_old[4 * i];
+  si[4 * i + 1] = vis ? b : si_old[4 * i + 1];
+  si[4 * i + 2] = vis ? T(0) : si_old[4 * i + 2];
+  si[4 * i + 3] = vis ? c : si_old[4 * i + 3];
+}
+
+template <typename T>
+int measure_project_launch(const void* sigma, void* pix, int m, int lo, int d,
+                           int ns, const double* consts, int iters,
+                           void* launches, void* stream) {
+  if (m < 1 || ns < 1 || lo < 0 || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  MeasureArgs args;
+  for (int i = 0; i < kMeasureConsts; ++i) args.c[i] = consts[i];
+  const unsigned blocks =
+      (unsigned)(((long long)m * ns + kMeasureThreads - 1) / kMeasureThreads);
+  measure_project_kernel<T>
+      <<<blocks, kMeasureThreads, 0, (cudaStream_t)stream>>>(
+          (const T*)sigma, (T*)pix, m, lo, d, ns, args, iters,
+          (int*)launches);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int measure_merge_launch(const void* mean, const void* gram,
+                         const void* active, const void* pred_old,
+                         const void* si_old, void* visible, void* pred,
+                         void* si, int m, double sigma2, void* launches,
+                         void* stream) {
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      (unsigned)((m + kMeasureThreads - 1) / kMeasureThreads);
+  measure_merge_kernel<T><<<blocks, kMeasureThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)mean, (const T*)gram, (const bool*)active, (const T*)pred_old,
+      (const T*)si_old, (bool*)visible, (T*)pred, (T*)si, m, sigma2,
+      (int*)launches);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Launch floor: a kernel that does nothing, launched through the same C
 // interface. Its time, read the way the kernels' times are read, is the
 // least any launch can show on the card; chip_smoke.py prints it beside
@@ -755,6 +1052,31 @@ int cvms_warp_ncc_score_map_f32(const void* image, const void* base,
   }
   return (int)cudaGetLastError();
 }
+
+// sigma (d + 5, ns) -> pix (m, ns, 2), the slots [lo, lo + m); contiguous,
+// one type (f32: float, f64: double); consts: the kMeasureConsts scalars of
+// MeasureConst.
+#define MEASURE_ENTRIES(sfx, T)                                               \
+  int cvms_measure_project_##sfx(const void* sigma, void* pix, int m,        \
+                                 int lo, int d, int ns, const double* consts, \
+                                 int iters, void* launches, void* stream) {   \
+    return measure_project_launch<T>(sigma, pix, m, lo, d, ns, consts, iters, \
+                                     launches, stream);                       \
+  }                                                                           \
+  int cvms_measure_merge_##sfx(const void* mean, const void* gram,           \
+                               const void* active, const void* pred_old,      \
+                               const void* si_old, void* visible, void* pred, \
+                               void* si, int m, double sigma2,                \
+                               void* launches, void* stream) {                \
+    return measure_merge_launch<T>(mean, gram, active, pred_old, si_old,      \
+                                   visible, pred, si, m, sigma2, launches,    \
+                                   stream);                                   \
+  }
+// mean (m, 2), gram (m, 2, 2), active (m,) bool, pred_old (m, 2), si_old
+// (m, 2, 2) -> visible (m,) bool, pred (m, 2), si (m, 2, 2); contiguous.
+MEASURE_ENTRIES(f32, float)
+MEASURE_ENTRIES(f64, double)
+#undef MEASURE_ENTRIES
 
 int cvms_empty_launch(void* stream) {
   empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();

@@ -16,6 +16,13 @@ plain versions and their wrappers.
   templates, so the normalization and the scores can be checked apart;
 * :func:`warp_bilinear` — bilinear resample of each landmark's init patch at
   fractional coordinates (replaces ``pallas_vision.py::warp_bilinear``);
+* :func:`measure_project` and :func:`measure_merge` — the full-sigma
+  measurement prediction of ``filter/measurement.py``: every slot through
+  every sigma point, then (after the plain version's two reductions, the
+  weighted mean and the Gram) visibility, the 2x2 innovation factor and the
+  merges with the old rows; their plain version is
+  ``filter/measurement.py::full_rows_ref``, which the caller takes for CPU
+  tensors and ``vision_backend="xla"``;
 * :func:`store_slots` — the stored table's slot policy of
   ``filter/lifecycle.store_features`` and :func:`gftt_greedy_nms` — GFTT's
   greedy min-distance separation of ``frontend/detect.gftt_candidates``:
@@ -53,6 +60,10 @@ _SIGNATURES = {
     "cvms_warp_ncc_score_map_f32": [_P] * 7 + [_I] * 9 + [_P, _P],
     "cvms_empty_launch": [_P],
     "cvms_stage_mark": [_I, _P],
+    **{f"cvms_measure_project_{t}": [_P, _P] + [_I] * 4 + [
+        ctypes.POINTER(ctypes.c_double), _I, _P, _P] for t in ("f32", "f64")},
+    **{f"cvms_measure_merge_{t}": [_P] * 8 + [_I, ctypes.c_double, _P, _P]
+       for t in ("f32", "f64")},
 }
 _SCAN_SIGNATURES = {
     "cvms_store_slots": [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 7,
@@ -494,13 +505,109 @@ def warp_ncc_score_map_with_templates(
 
 
 # ---------------------------------------------------------------------------
+# Full-sigma measurement prediction
+# ---------------------------------------------------------------------------
+
+_MEASURE_TYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def measure_consts(cam) -> tuple:
+    """The camera's Python floats that ``filter/measurement.py::
+    full_rows_ref``'s projection scales and compares by, in the order of
+    ``MeasureConst`` in ``csrc/vision_kernels.cu``; the kernel casts each
+    to the sigma set's type, as torch casts a Python scalar."""
+    return (cam.cx, cam.cy, cam.f1, cam.f2, cam.dx, cam.dy, cam.k1, cam.k2,
+            3.0 * cam.k1, 5.0 * cam.k2, cam.margin, cam.width - cam.margin,
+            cam.height - cam.margin, cam.width, cam.height)
+
+
+def _measure_check(name: str, tensors: dict, dtype) -> torch.device:
+    """One device, ``dtype`` float32 or float64 (bool for the masks named
+    ``active``), contiguous, on CUDA: anything else raises."""
+    if dtype not in _MEASURE_TYPES:
+        raise TypeError(f"{name}: wants float32 or float64, got {dtype}")
+    for key, t in tensors.items():
+        want = torch.bool if key == "active" else dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} is {t.dtype}, not {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+    dev = next(iter(tensors.values())).device
+    if any(t.device != dev for t in tensors.values()):
+        raise ValueError(f"{name}: tensors on different devices")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {dev} (the plain version "
+                         "is filter.measurement.full_rows_ref)")
+    return dev
+
+
+def measure_project(sigma: torch.Tensor, *, lo: int, m: int,
+                    state_dim: int, cam) -> torch.Tensor:
+    """The pixels (M, 2, ns) of the M slots ``[lo, lo + m)`` through every
+    point of the (D + 5, ns) sigma set ``sigma`` (D = ``state_dim``), with
+    the (0, 0) sentinel: ``filter/measurement.project_all``'s values to the
+    bit, and its layout (a permuted view of an (M, ns, 2) tensor). One
+    launch of ``csrc/vision_kernels.cu::measure_project_kernel``, counted
+    on the device; CUDA tensors only, float32 or float64, contiguous."""
+    ns = sigma.shape[-1] if sigma.dim() == 2 else -1
+    if (sigma.dim() != 2 or sigma.shape[0] != state_dim + 5 or m < 1
+            or lo < 0 or 6 * (lo + m) > state_dim - 4):
+        raise ValueError(f"measure_project: sigma {tuple(sigma.shape)} for "
+                         f"lo={lo}, m={m}, state_dim={state_dim}")
+    dev = _measure_check("measure_project", dict(sigma=sigma), sigma.dtype)
+    pix = torch.empty((m, ns, 2), dtype=sigma.dtype, device=dev)
+    consts = measure_consts(cam)
+    _launch("measure_project",
+            f"cvms_measure_project_{_MEASURE_TYPES[sigma.dtype]}", dev,
+            sigma.data_ptr(), pix.data_ptr(), m, lo, state_dim, ns,
+            (ctypes.c_double * len(consts))(*consts), cam.distort_iters,
+            _device_counter(dev, "measure_project").data_ptr())
+    return pix.permute(0, 2, 1)
+
+
+def measure_merge(mean: torch.Tensor, gram: torch.Tensor,
+                  active: torch.Tensor, pred: torch.Tensor, si: torch.Tensor,
+                  *, sigma_measure: float) -> Tuple[torch.Tensor, ...]:
+    """``(visible, pred, si)`` of M slots from the weighted mean (M, 2) and
+    the Gram (M, 2, 2) of their pixels: visible = active & mean != (0, 0),
+    si = ``chol2x2_upper(gram + sigma_measure^2 I)``, and pred and si of the
+    old rows (M, 2), (M, 2, 2) kept where a slot is not visible;
+    ``filter/measurement.full_rows_ref``'s tail to the bit. One launch of
+    ``csrc/vision_kernels.cu::measure_merge_kernel``, counted on the device;
+    CUDA tensors only, float32 or float64, contiguous (the two reductions'
+    outputs are made contiguous first)."""
+    m = active.shape[0] if active.dim() == 1 else -1
+    if (m < 1 or mean.shape != (m, 2) or gram.shape != (m, 2, 2)
+            or pred.shape != (m, 2) or si.shape != (m, 2, 2)):
+        raise ValueError(f"measure_merge: shapes mean {tuple(mean.shape)}, "
+                         f"gram {tuple(gram.shape)}, active "
+                         f"{tuple(active.shape)}, pred {tuple(pred.shape)}, "
+                         f"si {tuple(si.shape)}")
+    mean, gram = mean.contiguous(), gram.contiguous()
+    dev = _measure_check("measure_merge", dict(
+        mean=mean, gram=gram, active=active, pred=pred, si=si), mean.dtype)
+    visible = torch.empty(m, dtype=torch.bool, device=dev)
+    pred_out = torch.empty_like(pred)
+    si_out = torch.empty_like(si)
+    _launch("measure_merge",
+            f"cvms_measure_merge_{_MEASURE_TYPES[mean.dtype]}", dev,
+            mean.data_ptr(), gram.data_ptr(), active.data_ptr(),
+            pred.data_ptr(), si.data_ptr(), visible.data_ptr(),
+            pred_out.data_ptr(), si_out.data_ptr(), m,
+            float(sigma_measure) ** 2,
+            _device_counter(dev, "measure_merge").data_ptr())
+    return visible, pred_out, si_out
+
+
+# ---------------------------------------------------------------------------
 # Launch counters on the device
 # ---------------------------------------------------------------------------
 
 #: every kernel of this module and of ``linalg.py`` (``rank_rotate``,
 #: ``gmw_chol``), in the order of its slot in the counters
 KERNELS = ("warp_ncc_score_map", "ncc_score_map", "warp_bilinear",
-           "store_slots", "gftt_greedy_nms", "rank_rotate", "gmw_chol")
+           "store_slots", "gftt_greedy_nms", "rank_rotate", "gmw_chol",
+           "measure_project", "measure_merge")
 
 
 def _counts(dev) -> torch.Tensor:
